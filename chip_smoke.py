@@ -6,17 +6,29 @@
 Phases, one line each, then two JSON lines:
   1. device   torch / CUDA versions and the card, plus nvidia-smi's
               "name, power.limit" line;
-  2. build    nvcc builds csrc/ntt.cu (sm_90a) from the checkout;
-  3. kernels  each NTT kernel against its plain PyTorch version on the
-              card, bit for bit, at the PN15QP880 QP moduli (32 limbs,
-              N = 2^15, batch 8) and again at logN = 10; round trip;
-              median times from CUDA events;
-  4. mult     the main path: PN15QP880, 4 parties, keys from
+  2. build    nvcc builds csrc/ntt.cu and csrc/ntt_tail.cu (sm_90a) from
+              the checkout, one compiler per source, started together;
+  3. kernels  each of the five NTT kernels against its plain PyTorch
+              version on the card, bit for bit, at the PN15QP880 QP moduli
+              (32 limbs, N = 2^15, batch 8) and again at logN = 10, with
+              any-u32 and < 8q inputs; head + tail against the full
+              forward kernel and tail + tailed inverse against the full
+              inverse kernel; round trips; median times from CUDA events;
+  4. mult     the CKKS main path: PN15QP880, 4 parties, keys from
               torch.Generator on the card; three requests of fresh
               encryptions -> Evaluator.mul_relin_new (mult + relin +
               rescale) -> decrypt, and one 2-party request; each decrypts
               within log2|err| <= -log2(scale) + logslots + 12; the NTT
-              launch counters must grow during the phase.
+              launch counters must grow during the phase;
+  5. bfv      the MKBFV path with the split NTT on (config.ntt_mxu_tail):
+              PN15QP880, 4 parties, keys from torch.Generator on the card;
+              two 4-party requests ((user0 + user1) x (user2 + user3))
+              and, between them, one 2-party request (user0 x user1) of
+              fresh encryptions -> Evaluator.mul_relin_new -> decrypt,
+              each exactly equal to the plaintext product mod t; the
+              split's launch counters must grow and the full kernels' stay
+              at 0; the last 4-party mult again with the switch off, off
+              and on must give the same ciphertext bit for bit.
 Then {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
@@ -34,15 +46,21 @@ import time
 import numpy as np
 import torch
 
-from mkhe_tpu_torch import mkckks, mkrlwe
+from mkhe_tpu_torch import config, mkbfv, mkckks, mkrlwe
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
 
 BATCH = 8
 SEED = 2024
-KERNELS = (
-    ("ntt_fwd", "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
-    ("ntt_inv", "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
+NTT_CU = "mkhe_tpu_torch/csrc/ntt.cu"
+TAIL_CU = "mkhe_tpu_torch/csrc/ntt_tail.cu"
+KERNELS = (   # name, source, the TPU kernel it replaces
+    ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
+    ("ntt_inv", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
+    # _fwd_kernel(head_only=True), _tail_apply, _inv_kernel(tail_done=True)
+    ("ntt_fwd_head", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:102"),
+    ("ntt_tail", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:266"),
+    ("ntt_inv_tailed", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:175"),
 )
 
 
@@ -98,58 +116,77 @@ def _rand(gen, shape, bound):
 
 
 def phase_kernels(ring15: Ring) -> dict:
-    """Kernel vs plain on the card; returns per-kernel max_abs_err and the
-    times at logN = 15 (batch 8 of the 32 QP limbs)."""
+    """Every kernel against its plain version on the card, and the split's
+    compositions against the full kernels; returns per-kernel
+    max_abs_err and the times at logN = 15 (batch 8 of the 32 QP
+    limbs)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err = {"ntt_fwd": 0, "ntt_inv": 0}
-    mism = 0
+    err = {name: 0 for name, _, _ in KERNELS}
+    mism = comp_mism = 0
     times = {}
     for logn in (15, 10):
         ring = ring15 if logn == 15 else Ring.create(ring15.moduli, logn)
+        st = ring.split_tables()
         shape = (BATCH, ring.nlimbs, ring.n)
         q = ring.q[:, None]
         fwd_t = (ring.q, ring.bar, ring.psi, ring.psi_sh)
         inv_t = (ring.q, ring.bar, ring.ipsi, ring.ipsi_sh, ring.ninv,
                  ring.ninv_sh)
+        head_t = (ring.q, st.twist, st.twist_sh, st.wpack, st.wpack_sh)
+        tfwd_t = (ring.q, ring.r_inv, st.tail_fwd, st.tail_pow)
+        tinv_t = (ring.q, ring.r_inv, st.tail_inv, st.tail_pow)
+        itail_t = (ring.q, ring.bar, st.iwpack, st.iwpack_sh, st.untwist,
+                   st.untwist_sh)
+        canon = _rand(gen, shape, q)
+        any32 = _rand(gen, shape, 1 << 32)
+        lazy = _rand(gen, shape, 8 * q)
+        K = ntt_cuda
         cases = (
-            ("ntt_fwd", ntt_cuda.ntt, ntt_cuda.ntt_plain, fwd_t,
-             _rand(gen, shape, q)),                       # canonical
-            ("ntt_fwd", ntt_cuda.ntt, ntt_cuda.ntt_plain, fwd_t,
-             _rand(gen, shape, 1 << 32)),                 # any u32
-            ("ntt_inv", ntt_cuda.intt, ntt_cuda.intt_plain, inv_t,
-             _rand(gen, shape, 8 * q)),                   # lazy < 8q
+            ("ntt_fwd", K.ntt, K.ntt_plain, fwd_t, canon),
+            ("ntt_fwd", K.ntt, K.ntt_plain, fwd_t, any32),
+            ("ntt_inv", K.intt, K.intt_plain, inv_t, lazy),
+            ("ntt_fwd_head", K.ntt_head, K.ntt_head_plain, head_t, any32),
+            ("ntt_tail", K.tail, K.tail_plain, tfwd_t, any32),
+            ("ntt_tail", K.tail, K.tail_plain, tinv_t, lazy),
+            ("ntt_inv_tailed", K.intt_tailed, K.intt_tailed_plain, itail_t,
+             any32),
         )
         for name, kern, plain, tabs, x in cases:
             got, want = kern(x, *tabs), plain(x, *tabs)
             torch.cuda.synchronize()
             mism += int((got != want).sum())
             err[name] = max(err[name], int((got - want).abs().max()))
-        x = cases[0][4]
-        back = ntt_cuda.intt(ntt_cuda.ntt(x, *fwd_t), *inv_t)
-        torch.cuda.synchronize()
-        mism += int((back != x).sum())
+        # the split's compositions against the full kernels, round trips
+        split_fwd = K.tail(K.ntt_head(any32, *head_t), *tfwd_t)
+        split_inv = K.intt_tailed(K.tail(lazy, *tinv_t), *itail_t)
+        for got, want in ((split_fwd, K.ntt(any32, *fwd_t)),
+                          (split_inv, K.intt(lazy, *inv_t)),
+                          (K.intt(K.ntt(canon, *fwd_t), *inv_t), canon),
+                          (K.intt_tailed(K.tail(split_fwd, *tinv_t),
+                                         *itail_t), ring.reduce(any32))):
+            torch.cuda.synchronize()
+            comp_mism += int((got != want).sum())
         if logn == 15:
-            times = {
-                "ntt_fwd": cuda_ms(lambda: ntt_cuda.ntt(x, *fwd_t), 20),
-                "ntt_inv": cuda_ms(lambda: ntt_cuda.intt(x, *inv_t), 20),
-                "ntt_fwd_plain": cuda_ms(
-                    lambda: ntt_cuda.ntt_plain(x, *fwd_t), 5),
-                "ntt_inv_plain": cuda_ms(
-                    lambda: ntt_cuda.intt_plain(x, *inv_t), 5),
-            }
-    print(f"[3 kernels] mismatches {mism} (logN 15 and 10, canonical, "
-          f"any-u32 and <8q inputs, round trip); logN 15 batch {BATCH} x "
-          f"{ring15.nlimbs} limbs median ms: fwd {times['ntt_fwd']:.4f} "
-          f"(plain {times['ntt_fwd_plain']:.4f}), inv "
-          f"{times['ntt_inv']:.4f} (plain {times['ntt_inv_plain']:.4f})",
-          flush=True)
-    if mism:
-        raise AssertionError(f"kernel and plain version differ in {mism} "
-                             "values")
+            for name, kern, plain, tabs, x in cases[1:]:
+                if name in times:
+                    continue
+                times[name] = cuda_ms(lambda: kern(x, *tabs), 20)
+                times[name + "_plain"] = cuda_ms(lambda: plain(x, *tabs), 5)
+    print(f"[3 kernels] mismatches {mism} kernel vs plain (5 kernels, logN "
+          f"15 and 10, canonical, any-u32 and <8q inputs), {comp_mism} "
+          f"head+tail vs ntt_fwd and tail+inv_tailed vs ntt_inv (and round "
+          f"trips); logN 15 batch {BATCH} x {ring15.nlimbs} limbs median "
+          "ms: " + ", ".join(
+              f"{name} {times[name]:.4f} (plain {times[name + '_plain']:.4f})"
+              for name, _, _ in KERNELS), flush=True)
+    if mism or comp_mism:
+        raise AssertionError(f"kernels differ from their plain versions in "
+                             f"{mism} values, from the full kernels in "
+                             f"{comp_mism}")
     return {name: dict(max_abs_err=err[name], ms=times[name],
                        plain_ms=times[name + "_plain"])
-            for name, _ in KERNELS}
+            for name, _, _ in KERNELS}
 
 
 def phase_mult(params) -> dict:
@@ -204,9 +241,8 @@ def phase_mult(params) -> dict:
     ntt_cuda.reset_counters()
     runs4 = [request(users) for _ in range(3)]
     ms2, err2 = request(users[:2])
-    launches = {"ntt_fwd": ntt_cuda.fwd_launches,
-                "ntt_inv": ntt_cuda.inv_launches}
-    if min(launches.values()) < 1:
+    launches = ntt_cuda.counters()
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) < 1:
         raise AssertionError(f"the main path launched no kernel: {launches}")
     ms4 = [ms for ms, _ in runs4]
     print(f"[4 mult] PN15QP880 logN {params.logn} L {params.max_level + 1} "
@@ -215,9 +251,111 @@ def phase_mult(params) -> dict:
           f"{[round(m, 3) for m in ms4]} median {statistics.median(ms4):.3f}"
           f", log2 err {max(e for _, e in runs4):.2f}; 2-party ms "
           f"{ms2:.3f}, log2 err {err2:.2f}; bound {bound:.2f}; launches "
-          f"{launches}; peak mem "
+          f"{ {k: launches[k] for k in ('ntt_fwd', 'ntt_inv')} }; peak mem "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
+    return launches
+
+
+def phase_bfv(params) -> dict:
+    """The MKBFV path with the split NTT: keys, exact mults, the switch-off
+    rerun. Returns the launch counts of the split requests."""
+    config.ntt_mxu_tail = True
+    try:
+        users = [f"user{i}" for i in range(4)]
+        t0 = time.perf_counter()
+        kgen = mkbfv.KeyGenerator(params, seed=SEED + 11)
+        sks, rlk, pks = (mkrlwe.SecretKeySet(),
+                         mkbfv.RelinearizationKeySet(), {})
+        for uid in users:
+            sk, pks[uid] = kgen.gen_key_pair(uid)
+            sks.add(sk)
+            rlk.add(kgen.gen_relinearization_key_bfv(
+                sk, kgen.gen_secret_key(uid)))
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        # the split's tables of R (the 28 QMul limbs are new), built
+        # here and not inside the first timed mult
+        t0 = time.perf_counter()
+        params.ring_r.split_tables()
+        torch.cuda.synchronize()
+        tables_s = time.perf_counter() - t0
+        enc = mkbfv.Encryptor(params, seed=SEED + 12)
+        dec, ev = mkbfv.Decryptor(params), mkbfv.Evaluator(params)
+        rng = np.random.default_rng(SEED + 13)
+        t = params.t
+
+        def operands(k):
+            """Fresh encryptions: the first half of the parties summed
+            times the second half summed (bench.py:101-145)."""
+            half = k // 2
+            lo, hi = -(t // 2) + 1, t // 2
+            msgs = [rng.integers(lo // half, hi // half, params.n,
+                                 dtype=np.int64) for _ in range(k)]
+            cts = [enc.encrypt_msg(m, pks[uid])
+                   for m, uid in zip(msgs, users)]
+            c0, c1 = cts[0], cts[half]
+            for c in cts[1:half]:
+                c0 = ev.add_new(c0, c)
+            for c in cts[half + 1:k]:
+                c1 = ev.add_new(c1, c)
+            want = np.mod(sum(msgs[:half]) * sum(msgs[half:]), t)
+            return c0, c1, np.where(want > t // 2, want - t, want)
+
+        def mult(c0, c1):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = ev.mul_relin_new(c0, c1, rlk)
+            end.record()
+            torch.cuda.synchronize()
+            return res, start.elapsed_time(end)
+
+        def request(k):
+            c0, c1, want = operands(k)
+            res, ms = mult(c0, c1)
+            got = dec.decrypt(res, sks)
+            if not (res.ids == tuple(users[:k]) and got.shape == want.shape
+                    and np.array_equal(got, want)):
+                raise AssertionError(
+                    f"{k}-party BFV mult: ids {res.ids}, "
+                    f"{int((got != want).sum())} slots differ")
+            return c0, c1, res, ms
+
+        torch.cuda.reset_peak_memory_stats()
+        ntt_cuda.reset_counters()
+        first4 = request(4)
+        ms2 = request(2)[3]
+        c0, c1, res_on, ms_on = request(4)
+        launches = ntt_cuda.counters()
+        split = ("ntt_fwd_head", "ntt_tail", "ntt_inv_tailed")
+        if (min(launches[k] for k in split) < 1
+                or launches["ntt_fwd"] or launches["ntt_inv"]):
+            raise AssertionError(f"the BFV path did not run the split: "
+                                 f"{launches}")
+        # the last 4-party mult again, in turns on, off, off, on
+        turns = {True: [ms_on], False: []}
+        for on in (False, False, True):
+            config.ntt_mxu_tail = on
+            res, ms = mult(c0, c1)
+            turns[on].append(ms)
+            if not (res.ids == res_on.ids
+                    and torch.equal(res.data, res_on.data)):
+                raise AssertionError("the BFV mult with the split "
+                                     f"{'on' if on else 'off'} differs")
+    finally:
+        config.ntt_mxu_tail = False
+    print(f"[5 bfv] PN15QP880 logN {params.logn} Q {len(params.rlwe.q_moduli)}"
+          f" + QMul {len(params.qmul_moduli)} + P {params.rlwe.pcount}, alpha "
+          f"{params.rlwe.alpha}, t {t}, split NTT on; keygen {keygen_s:.2f} s, "
+          f"R's split tables {tables_s:.2f} s;"
+          f" exact: 4-party mult ms {first4[3]:.3f} (first) and {ms_on:.3f},"
+          f" 2-party {ms2:.3f}; last 4-party mult again, bit-identical, ms "
+          f"split on {[round(m, 3) for m in turns[True]]} off "
+          f"{[round(m, 3) for m in turns[False]]}; launches "
+          f"{ {k: launches[k] for k in split} }; peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     return launches
 
 
@@ -227,11 +365,13 @@ def main() -> None:
     params = mkckks.PN15QP880("cuda")
     stats = phase_kernels(params.rlwe.ring_qp)
     launches = phase_mult(params)
+    split = phase_bfv(mkbfv.PN15QP880("cuda"))
+    launches.update({k: v for k, v in split.items()
+                     if k not in ("ntt_fwd", "ntt_inv")})
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "mkhe_tpu_torch/csrc/ntt.cu", "replaces": replaces,
-         "launches": launches[name], **stats[name]}
-        for name, replaces in KERNELS]}), flush=True)
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name], **stats[name]}
+        for name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 

@@ -1,4 +1,4 @@
-"""Device choice for the port.
+"""Device choice and the NTT's form for the port.
 
 Every constructor takes `device=`; None means DEFAULT_DEVICE. There is no
 "auto" mode: asking for CUDA on a machine without a card raises instead of
@@ -10,6 +10,14 @@ from __future__ import annotations
 import torch
 
 DEFAULT_DEVICE = "cuda"
+
+# Run the NTT's 7 small butterfly stages as one fixed 128x128 map per limb
+# (int8 digit planes on the tensor cores, ops/ntt_cuda.tail) after a head
+# kernel that runs the stages with half-block >= 128; the counterpart of
+# mkhe_tpu.config.pallas_ntt_mxu_tail, default off as there. It applies
+# only for N >= 256 and is read at every Ring.ntt / Ring.intt call.
+# Outputs are bit-identical either way.
+ntt_mxu_tail: bool = False
 
 
 def get_device(device=None) -> torch.device:

@@ -13,7 +13,7 @@ from typing import Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import mkckks, mkrlwe
+from . import mkbfv, mkckks, mkrlwe
 from .config import get_device
 
 
@@ -40,6 +40,15 @@ def ckks_parameters(rlwe: mkrlwe.Parameters, logslots: int, scale: float
                     ) -> mkckks.Parameters:
     return mkckks.Parameters(rlwe=rlwe, logslots=int(logslots),
                              scale=float(scale))
+
+
+def bfv_parameters(rlwe: mkrlwe.Parameters, qmul_moduli: Sequence[int],
+                   t: int) -> mkbfv.Parameters:
+    """mkbfv Parameters over rlwe (built by rlwe_parameters with the JAX
+    package's CRS 0, -1 and -3)."""
+    return mkbfv.Parameters(rlwe=rlwe,
+                            qmul_moduli=tuple(int(q) for q in qmul_moduli),
+                            t=int(t))
 
 
 def secret_key(pid: str, data, device=None) -> mkrlwe.SecretKey:
@@ -75,7 +84,8 @@ def public_key_set(keys: Mapping[str, np.ndarray], device=None
 
 def relinearization_key_set(keys: Mapping[str, Tuple], device=None
                             ) -> mkrlwe.RelinearizationKeySet:
-    """keys: id -> (b, d, v)."""
+    """keys: id -> (b, d, v), the fields of an mkrlwe or a (fused-pair)
+    mkbfv RelinearizationKey of the JAX package."""
     out = mkrlwe.RelinearizationKeySet()
     for pid, (b, d, v) in keys.items():
         out.add(relinearization_key(pid, b, d, v, device))

@@ -1,0 +1,70 @@
+"""Multi-key BFV evaluator (port of mkhe_tpu/mkbfv/evaluator.py:20-131):
+add/sub with id-set union, MulRelin and its hoisted form. PyTorch runs
+eagerly, so the JAX package's jitted cores become direct calls."""
+
+from __future__ import annotations
+
+import torch
+
+from ..mkrlwe.elements import Ciphertext, union_ids
+from .params import Parameters
+from .keys import RelinearizationKeySet
+from . import basis as bfv_basis
+from . import keyswitch as bfv_ksw
+
+
+class Evaluator:
+    def __init__(self, params: Parameters):
+        self.params = params
+
+    def _combine(self, ct0: Ciphertext, ct1: Ciphertext, op, lone_b
+                 ) -> Ciphertext:
+        ids = union_ids(ct0.ids, ct1.ids)
+        ring = self.params.ring_q
+        a, b = ct0.data, ct1.data
+        out = [op(ring, a[0], b[0])]
+        for pid in ids:
+            if pid in ct0.ids and pid in ct1.ids:
+                out.append(op(ring, a[1 + ct0.ids.index(pid)],
+                              b[1 + ct1.ids.index(pid)]))
+            elif pid in ct0.ids:
+                out.append(a[1 + ct0.ids.index(pid)])
+            else:
+                out.append(lone_b(ring, b[1 + ct1.ids.index(pid)]))
+        return Ciphertext(ids=ids, data=torch.stack(out))
+
+    def add_new(self, ct0: Ciphertext, ct1: Ciphertext) -> Ciphertext:
+        return self._combine(ct0, ct1, lambda r, x, y: r.add(x, y),
+                             lambda r, y: y)
+
+    def sub_new(self, ct0: Ciphertext, ct1: Ciphertext) -> Ciphertext:
+        return self._combine(ct0, ct1, lambda r, x, y: r.sub(x, y),
+                             lambda r, y: r.neg(y))
+
+    def mul_relin_new(self, ct0: Ciphertext, ct1: Ciphertext,
+                      rlk_set: RelinearizationKeySet) -> Ciphertext:
+        """Lift operand 0 to R, rescale operand 1 by QMul/Q into R
+        (evaluator.go:118-137), then MulAndRelinBFV."""
+        p = self.params
+        rlk = rlk_set.stacked(union_ids(ct0.ids, ct1.ids))
+        ct0r = Ciphertext(ids=ct0.ids,
+                          data=bfv_basis.mod_up_q_to_r(p, ct0.data))
+        ct1r = Ciphertext(ids=ct1.ids,
+                          data=bfv_basis.rescale_q_to_r(p, ct1.data))
+        return bfv_ksw.mul_and_relin_bfv(p, ct0r, ct1r, rlk)
+
+    def hoisted_form(self, ct: Ciphertext) -> bfv_ksw.HoistedCiphertext:
+        """Both double-basis forms of ct and their decompositions, so that
+        repeated multiplications skip them (evaluator.go:118-144)."""
+        return bfv_ksw.hoist(self.params, ct)
+
+    def mul_relin_hoisted_new(self, h0: bfv_ksw.HoistedCiphertext,
+                              h1: bfv_ksw.HoistedCiphertext,
+                              rlk_set: RelinearizationKeySet) -> Ciphertext:
+        """MulAndRelinBFVHoisted (keyswitch_hoisted.go:39-207): multiply
+        two hoisted forms."""
+        rlk = rlk_set.stacked(union_ids(h0.ids, h1.ids))
+        return bfv_ksw.mul_and_relin_bfv(
+            self.params, Ciphertext(ids=h0.ids, data=h0.lift),
+            Ciphertext(ids=h1.ids, data=h1.resc), rlk,
+            dec0=h0.dec_lift, dec1=h1.dec_resc)

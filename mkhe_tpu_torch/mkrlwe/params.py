@@ -5,9 +5,11 @@ polynomial vector, NTT domain by fiat, stored in Montgomery form. Each is
 drawn from a torch.Generator seeded from (crs_seed, idx), so Parameters
 built independently on the same kind of device agree.
 
-Only the CRS the slice uses are drawn: 0 (public and relinearization
-keys) and -1 (the relinearization u). At PN15QP880 each is 117 MB of
-int64; the rotation and conjugation CRS come with rotation.
+Only the CRS the ported paths use are drawn: 0 (public and
+relinearization keys), -1 (the relinearization u) and -3 (the second half
+of the MKBFV relinearization key, mkhe_tpu/mkbfv/keygen.py:77-78). At
+PN15QP880 each is 117 MB of int64; the rotation and conjugation CRS come
+with rotation.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..ops import modmath as mm
 from ..ops import sampling
 from ..ops.ring import Ring
 
-SLICE_CRS = (0, -1)
+SLICE_CRS = (0, -1, -3)
 
 # HE Standard v1.1, ternary secret, error stddev 3.2: the largest log2(QP)
 # with 128-bit security for each logN (mkhe_tpu/utils/security.py).

@@ -117,24 +117,25 @@ def mod_down(xq, xp, ring_q: Ring, ring_p: Ring) -> torch.Tensor:
 # Gadget decomposition (KKLSS / RNS-CRT gadget with gamma grouping)
 # ----------------------------------------------------------------------------
 
-def decompose_digits(x, ring_q: Ring, ring_qp: Ring, alpha: int
+def decompose_digits(x, src_ring: Ring, dst_ring: Ring, alpha: int
                      ) -> torch.Tensor:
-    """Decompose coeff-domain (..., Lq, N) into gadget digits
-    (..., beta, Lqp, N), beta = ceil(Lq/alpha), each in the full QP basis,
+    """Decompose coeff-domain (..., Ls, N) in the source basis (Q for
+    CKKS, R = Q ++ QMul for BFV) into gadget digits (..., beta, Ld, N),
+    beta = ceil(Ls/alpha), each in the full destination basis (QP),
     coefficient domain. For alpha == 1 digit d is the raw limb-d residue
     broadcast to every target limb (a view; values may exceed the target
     modulus and are reduced by the NTT that follows)."""
-    lq = x.shape[-2]
+    ls = x.shape[-2]
     if alpha == 1:
         return x[..., :, None, :].expand(
-            *x.shape[:-2], lq, ring_qp.nlimbs, x.shape[-1])
+            *x.shape[:-2], ls, dst_ring.nlimbs, x.shape[-1])
     outs = []
-    for lo in range(0, lq, alpha):
-        hi = min(lo + alpha, lq)
-        t = mod_up_tables(ring_q.moduli[lo:hi], ring_qp.moduli,
-                          ring_qp.device)
-        outs.append(mod_up(x[..., lo:hi, :], ring_q.take(lo, hi), ring_qp,
-                           t))
+    for lo in range(0, ls, alpha):
+        hi = min(lo + alpha, ls)
+        t = mod_up_tables(src_ring.moduli[lo:hi], dst_ring.moduli,
+                          dst_ring.device)
+        outs.append(mod_up(x[..., lo:hi, :], src_ring.take(lo, hi),
+                           dst_ring, t))
     return torch.stack(outs, dim=-3)
 
 

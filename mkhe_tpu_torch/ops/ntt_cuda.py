@@ -1,16 +1,24 @@
 """Negacyclic NTT / iNTT: the CUDA kernels, their build and launcher, launch
 counters, and the plain PyTorch versions.
 
-The kernels (csrc/ntt.cu) replace the TPU kernels
+The kernels of csrc/ntt.cu replace the TPU kernels
 mkhe_tpu/ops/ntt_pallas.py::_fwd_kernel and ::_inv_kernel. On an H100
 they are bound by integer multiplies and shared-memory traffic: one block
 holds one polynomial in shared memory, and each of the logN stages reads
 and writes the whole 128 KiB (N = 2^15).
 
-`ntt` / `intt` dispatch on the tensor's device: a CPU tensor goes to the
+The kernels of csrc/ntt_tail.cu are the split form of the same transforms
+(config.ntt_mxu_tail), replacing _fwd_kernel(head_only=True),
+_inv_kernel(tail_done=True) and the int8 tail map _tail_apply
+(ntt_pallas.py:80-104, 159-175, 266-312): `ntt_head`, `tail` and
+`intt_tailed`.
+
+Every wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version (`ntt_plain` / `intt_plain`, the int64 transliteration of
-the JAX package's jnp path, mkhe_tpu/ops/ring.py:377-440); a CUDA tensor
-launches the kernel or raises. There is no fallback from one to the other.
+the JAX package's jnp path, mkhe_tpu/ops/ring.py:377-440; `ntt_head_plain`
+/ `tail_plain` / `intt_tailed_plain`, those of the Pallas split); a CUDA
+tensor launches the kernel or raises. There is no fallback from one to the
+other.
 
 The build runs `nvcc` on first use, from csrc/*.cu alone, into
 build/mkhe_tpu_torch/ at the repository root, and again whenever a source
@@ -36,17 +44,32 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mkhe_tpu_torch"
 LIB_PATH = BUILD_DIR / "libmkhe_ntt.so"
 MAX_LOGN = 15   # one polynomial of 2^15 u32 fills 128 KiB of shared memory
+SPLIT_MIN_LOGN = 7  # the split kernels work on whole 128-lane blocks
+TAIL_LANES = 128
+TAIL_DIGITS = 5
+TAIL_DIGIT_BITS = 7
 
 # Kernel launches since the last reset_counters(); only a launch of the
 # CUDA kernel counts, never a call of the plain version.
 fwd_launches = 0
 inv_launches = 0
+head_launches = 0
+tail_launches = 0
+inv_tailed_launches = 0
 
 
 def reset_counters() -> None:
-    global fwd_launches, inv_launches
-    fwd_launches = 0
-    inv_launches = 0
+    global fwd_launches, inv_launches, head_launches, tail_launches
+    global inv_tailed_launches
+    fwd_launches = inv_launches = 0
+    head_launches = tail_launches = inv_tailed_launches = 0
+
+
+def counters() -> dict:
+    """Launches of each kernel since the last reset_counters()."""
+    return {"ntt_fwd": fwd_launches, "ntt_inv": inv_launches,
+            "ntt_fwd_head": head_launches, "ntt_tail": tail_launches,
+            "ntt_inv_tailed": inv_tailed_launches}
 
 
 # ----------------------------------------------------------------------------
@@ -67,8 +90,9 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH if it is missing or older than a
-    source. Returns the compiler's output (ptxas register and shared
-    memory report) when it ran, else ''."""
+    source: one nvcc per source, all started together, then one link.
+    Returns the compiler's output (ptxas register and shared memory
+    report) when it ran, else ''."""
     sources = sorted(CSRC.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources in {CSRC}")
@@ -76,16 +100,38 @@ def build() -> str:
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return res.stdout + res.stderr
+    nvcc, tag = _nvcc(), f"tmp{os.getpid()}"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC"]
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+    tmp = LIB_PATH.with_suffix(f".so.{tag}")
+    procs = []
+    try:
+        for src, obj in zip(sources, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
+                 str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        for src, p, log in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({p.returncode}):\n{log}")
+        res = subprocess.run([nvcc, *flags, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 @functools.lru_cache(maxsize=1)
@@ -98,6 +144,12 @@ def load() -> ctypes.CDLL:
     lib.mkhe_ntt_fwd.restype = ci
     lib.mkhe_ntt_inv.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.mkhe_ntt_inv.restype = ci
+    lib.mkhe_ntt_fwd_head.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.mkhe_ntt_fwd_head.restype = ci
+    lib.mkhe_ntt_tail.argtypes = [vp] * 5 + [ci, ci, ci, vp]
+    lib.mkhe_ntt_tail.restype = ci
+    lib.mkhe_ntt_inv_tailed.argtypes = [vp] * 8 + [ci, ci, ci, vp]
+    lib.mkhe_ntt_inv_tailed.restype = ci
     return lib
 
 
@@ -105,7 +157,7 @@ def load() -> ctypes.CDLL:
 # Launchers
 # ----------------------------------------------------------------------------
 
-def _check(x, tables, consts):
+def _check(x, tables, consts, min_logn=1):
     """Validate what the kernels take; returns (n_polys, L, logn)."""
     if x.dtype != torch.int64:
         raise TypeError(f"NTT input must be int64, got {x.dtype}")
@@ -113,9 +165,9 @@ def _check(x, tables, consts):
         raise ValueError(f"NTT input must be (..., L, N), got {x.shape}")
     L, n = x.shape[-2], x.shape[-1]
     logn = n.bit_length() - 1
-    if n != 1 << logn or not 1 <= logn <= MAX_LOGN:
+    if n != 1 << logn or not min_logn <= logn <= MAX_LOGN:
         raise ValueError(f"N = {n}: the kernels take N = 2^logN, "
-                         f"1 <= logN <= {MAX_LOGN}")
+                         f"{min_logn} <= logN <= {MAX_LOGN}")
     for t in (x, *tables, *consts):
         if t.device != x.device:
             raise ValueError("NTT input and tables on different devices")
@@ -135,8 +187,29 @@ def _check(x, tables, consts):
     return n_polys, L, logn
 
 
-def _launch(fn, x, tables, consts):
-    n_polys, L, logn = _check(x, tables, consts)
+def _check_tail(x, q, r_inv, mat, pw):
+    """_check for the tail: the (L, 5, 128, 128) int8 digit planes and the
+    (L, 9) int64 recombination powers beside the per-limb constants."""
+    shape = _check(x, (), (q, r_inv), min_logn=SPLIT_MIN_LOGN)
+    L = shape[1]
+    want = {"tail map": ((L, TAIL_DIGITS, TAIL_LANES, TAIL_LANES),
+                         torch.int8),
+            "tail powers": ((L, 2 * TAIL_DIGITS - 1), torch.int64)}
+    for t, (name, (shp, dtype)) in zip((mat, pw), want.items()):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous, on {x.device}")
+        if tuple(t.shape) != shp or t.dtype != dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, "
+                             f"want {shp} {dtype}")
+    if mat.data_ptr() % 4:
+        raise ValueError("tail map: the kernel reads it in 4-byte words")
+    return shape
+
+
+def _launch(fn, x, args, shape):
+    """Launch fn(x, out, *args, n_polys, L, logn, stream) on x's device,
+    shape = _check(...)'s (n_polys, L, logn)."""
+    n_polys, L, logn = shape
     out = torch.empty_like(x)
     if n_polys == 0:
         return out
@@ -145,8 +218,7 @@ def _launch(fn, x, tables, consts):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(),
-                 *[t.data_ptr() for t in (*tables, *consts)],
-                 n_polys, L, logn, stream)
+                 *[t.data_ptr() for t in args], n_polys, L, logn, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     return out
@@ -165,10 +237,10 @@ def ntt(x, q, bar, psi, psi_sh):
     """Forward NTT of (..., L, N), any u32 input -> canonical, bit-reversed
     order. Kernel on a CUDA tensor, plain version on a CPU tensor."""
     global fwd_launches
+    shape = _check(x, (psi, psi_sh), (q, bar))
     if not _device_route(x):
-        _check(x, (psi, psi_sh), (q, bar))
         return ntt_plain(x, q, bar, psi, psi_sh)
-    out = _launch(load().mkhe_ntt_fwd, x, (psi, psi_sh), (q, bar))
+    out = _launch(load().mkhe_ntt_fwd, x, (psi, psi_sh, q, bar), shape)
     fwd_launches += 1
     return out
 
@@ -178,12 +250,61 @@ def intt(x, q, bar, ipsi, ipsi_sh, ninv, ninv_sh):
     < 8q inputs of the key-switch pipeline) -> canonical, standard order.
     Kernel on a CUDA tensor, plain version on a CPU tensor."""
     global inv_launches
+    shape = _check(x, (ipsi, ipsi_sh), (q, bar, ninv, ninv_sh))
     if not _device_route(x):
-        _check(x, (ipsi, ipsi_sh), (q, bar, ninv, ninv_sh))
         return intt_plain(x, q, bar, ipsi, ipsi_sh, ninv, ninv_sh)
-    out = _launch(load().mkhe_ntt_inv, x, (ipsi, ipsi_sh),
-                  (q, bar, ninv, ninv_sh))
+    out = _launch(load().mkhe_ntt_inv, x,
+                  (ipsi, ipsi_sh, q, bar, ninv, ninv_sh), shape)
     inv_launches += 1
+    return out
+
+
+def ntt_head(x, q, twist, twist_sh, wpack, wpack_sh):
+    """Head of the split forward NTT over (..., L, N), any u32 input:
+    twist by psi^j, then the DIF stages with half-block h = N/2 .. 128.
+    Canonical output, still in the head's intermediate order (`tail`
+    with the forward map finishes the transform). Kernel on a CUDA
+    tensor, plain version on a CPU tensor."""
+    global head_launches
+    shape = _check(x, (twist, twist_sh, wpack, wpack_sh), (q,),
+                   min_logn=SPLIT_MIN_LOGN)
+    if not _device_route(x):
+        return ntt_head_plain(x, q, twist, twist_sh, wpack, wpack_sh)
+    out = _launch(load().mkhe_ntt_fwd_head, x,
+                  (twist, twist_sh, wpack, wpack_sh, q), shape)
+    head_launches += 1
+    return out
+
+
+def tail(x, q, r_inv, mat, pw):
+    """Each 128-lane block of (..., L, N) times its limb's fixed 128x128
+    map over Z_q (tail_fwd or tail_inv), any u32 input, canonical output.
+    Kernel on a CUDA tensor, plain version on a CPU tensor. r_inv
+    (2^-32 mod q) serves the plain version's Montgomery step; the kernel
+    works out -q^-1 mod 2^32 itself."""
+    global tail_launches
+    shape = _check_tail(x, q, r_inv, mat, pw)
+    if not _device_route(x):
+        return tail_plain(x, q, r_inv, mat, pw)
+    out = _launch(load().mkhe_ntt_tail, x, (mat, pw, q), shape)
+    tail_launches += 1
+    return out
+
+
+def intt_tailed(x, q, bar, iwpack, iwpack_sh, untwist, untwist_sh):
+    """Rest of the split inverse NTT after `tail` with the inverse map:
+    the DIT stages with half-block h = 128 .. N/2, then the untwist by
+    psi^-j / N. Any u32 input, canonical standard-order output. Kernel on
+    a CUDA tensor, plain version on a CPU tensor."""
+    global inv_tailed_launches
+    shape = _check(x, (iwpack, iwpack_sh, untwist, untwist_sh), (q, bar),
+                   min_logn=SPLIT_MIN_LOGN)
+    if not _device_route(x):
+        return intt_tailed_plain(x, q, bar, iwpack, iwpack_sh, untwist,
+                                 untwist_sh)
+    out = _launch(load().mkhe_ntt_inv_tailed, x,
+                  (iwpack, iwpack_sh, untwist, untwist_sh, q, bar), shape)
+    inv_tailed_launches += 1
     return out
 
 
@@ -231,3 +352,80 @@ def intt_plain(x, q, bar, ipsi, ipsi_sh, ninv, ninv_sh):
         t *= 2
         m = h
     return mm.shoup_mul(a, ninv[:, None], ninv_sh[:, None], q[:, None])
+
+
+# ----------------------------------------------------------------------------
+# Plain PyTorch versions of the split (any device)
+# ----------------------------------------------------------------------------
+
+def _stage_view(a, h):
+    """(..., L, N) -> the top and bottom halves of every 2h-block,
+    each (..., L, N / 2h, h)."""
+    xr = a.reshape(*a.shape[:-1], a.shape[-1] // (2 * h), 2, h)
+    return xr[..., 0, :], xr[..., 1, :]
+
+
+def ntt_head_plain(x, q, twist, twist_sh, wpack, wpack_sh):
+    """Twist, then the DIF stages h = N/2 .. 128, all canonical: the
+    arithmetic of mkhe_tpu/ops/ntt_pallas.py::_fwd_stages(head_only=True)
+    (:73-104) with exact Shoup quotients."""
+    L, n = x.shape[-2], x.shape[-1]
+    a = mm.shoup_mul(x, twist, twist_sh, q[:, None])
+    qq = q[:, None, None]
+    h = n // 2
+    while h >= TAIL_LANES:
+        top, bot = _stage_view(a, h)
+        w = wpack[:, None, n - 2 * h:n - h]
+        wsh = wpack_sh[:, None, n - 2 * h:n - h]
+        a = torch.stack([mm.add_mod(top, bot, qq),
+                         mm.shoup_mul(mm.sub_mod(top, bot, qq), w, wsh, qq)],
+                        dim=-2).reshape(x.shape)
+        h //= 2
+    return a
+
+
+def tail_plain(x, q, r_inv, mat, pw):
+    """mkhe_tpu/ops/ntt_pallas.py::_tail_apply: the input's 5 base-2^7
+    digit planes times the map's 5, as 25 products summed into 9 partial
+    sums s_t (t = digit of x + digit of the map), then sum_t s_t *
+    2^(7t+32) reduced by one Montgomery step. The products run in float64:
+    each term is < 2^14 and each sum < 2^24, so they are exact (and CUDA
+    has no int64 matrix product)."""
+    L, n = x.shape[-2], x.shape[-1]
+    rows = x.reshape(-1, L, n // TAIL_LANES, TAIL_LANES).transpose(0, 1)
+    rows = rows.reshape(L, -1, TAIL_LANES)        # (L, blocks, 128)
+    m = mat.to(torch.float64)
+    mask = (1 << TAIL_DIGIT_BITS) - 1
+    s = [None] * (2 * TAIL_DIGITS - 1)
+    for k in range(TAIL_DIGITS):
+        dk = ((rows >> (TAIL_DIGIT_BITS * k)) & mask).to(torch.float64)
+        for j in range(TAIL_DIGITS):
+            p = torch.matmul(dk, m[:, j])
+            s[k + j] = p if s[k + j] is None else s[k + j] + p
+    acc = None                  # < 9 * 2^24 * 2^29 < 2^63
+    for t, st in enumerate(s):
+        term = st.to(torch.int64) * pw[:, t, None, None]
+        acc = term if acc is None else acc + term
+    qq = q[:, None, None]
+    r = (acc % qq) * r_inv[:, None, None] % qq
+    return r.reshape(L, -1, n // TAIL_LANES, TAIL_LANES).transpose(0, 1) \
+        .reshape(x.shape).contiguous()
+
+
+def intt_tailed_plain(x, q, bar, iwpack, iwpack_sh, untwist, untwist_sh):
+    """The DIT stages h = 128 .. N/2, then the untwist, all canonical: the
+    arithmetic of mkhe_tpu/ops/ntt_pallas.py::_inv_kernel(tail_done=True)
+    (:175-225) with exact Shoup quotients, after a Barrett reduction of
+    the input."""
+    L, n = x.shape[-2], x.shape[-1]
+    a = mm.barrett_reduce(x, q[:, None], bar[:, None])
+    qq = q[:, None, None]
+    h = TAIL_LANES
+    while h < n:
+        top, bot = _stage_view(a, h)
+        v = mm.shoup_mul(bot, iwpack[:, None, n - 2 * h:n - h],
+                         iwpack_sh[:, None, n - 2 * h:n - h], qq)
+        a = torch.stack([mm.add_mod(top, v, qq), mm.sub_mod(top, v, qq)],
+                        dim=-2).reshape(x.shape)
+        h *= 2
+    return mm.shoup_mul(a, untwist, untwist_sh, q[:, None])

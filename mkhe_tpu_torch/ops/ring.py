@@ -8,10 +8,18 @@ NTT-domain keys carried across from it are valid here.
 
 Ring.ntt / Ring.intt dispatch on the tensor's device (ops/ntt_cuda.py):
 the hand-written CUDA kernels for a CUDA tensor, their plain PyTorch
-versions for a CPU tensor.
+versions for a CPU tensor. With config.ntt_mxu_tail on and N >= 256 they
+take the split form instead (mkhe_tpu/ops/ntt_pallas.py:9-17, 266-312):
 
-Only the tables the port uses are built: none of the JAX package's
-Pallas-layout twiddles (wpack, twist, ...) or MXU-tail matrices.
+  ntt  = head (twist by psi^j, DIF stages with half-block h >= 128)
+         -> tail (the stages h = 64 .. 1 as one 128x128 map per limb);
+  intt = tail (DIT stages h = 1 .. 64) -> DIT stages h >= 128 + untwist.
+
+The split's tables (twist, untwist, the stage-packed wpack / iwpack with
+their Shoup companions, and the tail maps as int8 digit planes) equal the
+JAX package's of the same names (mkhe_tpu/ops/ring.py:77-212). They are
+built only when the split is first used, from a cache keyed on
+(moduli, logn, device), so rings made by take / concat get them too.
 """
 
 from __future__ import annotations
@@ -26,10 +34,17 @@ import torch
 from .. import config
 from . import modmath as mm
 from . import ntt_cuda
+from .ntt_cuda import TAIL_DIGIT_BITS, TAIL_DIGITS, TAIL_LANES
 from .primes import primitive_root_2n
 
 TABLE_FIELDS = ("q", "r_inv", "r2", "bar", "psi", "psi_sh", "ipsi",
                 "ipsi_sh", "ninv", "ninv_sh")
+
+# Stages with half-block h < TAIL_LANES = 128 stay inside one 128-lane
+# block: together they are one fixed 128x128 map per limb, stored as
+# TAIL_DIGITS = 5 base-2^TAIL_DIGIT_BITS (2^7) digit planes (0..127 fit
+# int8 exactly; 5 * 7 = 35 bits cover any u32).
+SPLIT_MIN_LOGN = 8   # Ring.ntt / intt take the split for N >= 256
 
 
 def _pow_seq(base: int, n: int, q: int) -> np.ndarray:
@@ -84,6 +99,109 @@ def _host_tables(moduli: Tuple[int, ...], logn: int) -> dict:
         consts["ninv"][i] = nv
         consts["ninv_sh"][i] = mm.shoup_host(nv, qi)
     return {**consts, **tabs}
+
+
+# ----------------------------------------------------------------------------
+# Tables of the split NTT (config.ntt_mxu_tail)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SplitTables:
+    """Per-limb tables of the split NTT, on the ring's device. (L, N)
+    int64: twist = psi^j, untwist = psi^-j / N, wpack / iwpack = stage s
+    (half-block h = N >> s) at offset N - 2h holding omega^(+-2^(s-1) l),
+    l < h, each with its Shoup companion (*_sh). tail_fwd / tail_inv:
+    (L, 5, 128, 128) int8 base-2^7 digit planes of the tail map M, out =
+    x @ M on each 128-lane block. tail_pow: (L, 9) int64, 2^(7t+32) mod q."""
+    twist: torch.Tensor
+    twist_sh: torch.Tensor
+    untwist: torch.Tensor
+    untwist_sh: torch.Tensor
+    wpack: torch.Tensor
+    wpack_sh: torch.Tensor
+    iwpack: torch.Tensor
+    iwpack_sh: torch.Tensor
+    tail_fwd: torch.Tensor
+    tail_inv: torch.Tensor
+    tail_pow: torch.Tensor
+
+
+SPLIT_FIELDS = tuple(f.name for f in dataclasses.fields(SplitTables))
+
+
+def _tail_maps(q: int, logn: int, wpack: np.ndarray, iwpack: np.ndarray):
+    """The tail's two 128x128 maps over Z_q for one limb, as digit planes:
+    forward = the DIF stages h = 64 .. 1, inverse = the DIT stages h = 1
+    .. 64, each an exact simulation of the stage arithmetic
+    (mkhe_tpu/ops/ring.py::_tail_matrices)."""
+    n = 1 << logn
+    lanes = min(TAIL_LANES, n)
+    lane = np.arange(lanes)
+    qq = np.uint64(q)
+
+    def tw(table, h):
+        if h == 1:
+            return np.ones(lanes, np.uint64)
+        return np.tile(table[n - 2 * h:n - h], lanes // h).astype(np.uint64)
+
+    fwd = np.eye(lanes, dtype=np.uint64)
+    h = lanes // 2
+    while h >= 1:
+        first = (lane & h) == 0
+        p, mn = np.roll(fwd, -h, axis=1), np.roll(fwd, h, axis=1)
+        fwd = np.where(first[None, :], (fwd + p) % qq,
+                       ((mn + qq - fwd) % qq) * tw(wpack, h)[None, :] % qq)
+        h //= 2
+    inv = np.eye(lanes, dtype=np.uint64)
+    h = 1
+    while h < lanes:
+        first = (lane & h) == 0
+        p, mn = np.roll(inv, -h, axis=1), np.roll(inv, h, axis=1)
+        v = np.where(first[None, :], p, inv) * tw(iwpack, h)[None, :] % qq
+        inv = np.where(first[None, :], (inv + v) % qq, (mn + qq - v) % qq)
+        h *= 2
+    shifts = np.uint64(TAIL_DIGIT_BITS) * np.arange(TAIL_DIGITS,
+                                                    dtype=np.uint64)
+    mask = np.uint64((1 << TAIL_DIGIT_BITS) - 1)
+    planes = lambda m: ((m[None] >> shifts[:, None, None]) & mask
+                        ).astype(np.int8)
+    return planes(fwd), planes(inv)
+
+
+@functools.lru_cache(maxsize=None)
+def _limb_split_tables(q: int, logn: int) -> dict:
+    """The split's tables for one limb, numpy (see SplitTables)."""
+    n = 1 << logn
+    root = primitive_root_2n(q, logn)
+    fwd = _pow_seq(root, n, q)
+    inv = _pow_seq(pow(root, -1, q), n, q)
+    omega = root * root % q
+    iomega = pow(omega, -1, q)
+    wpack = np.zeros(n, np.uint64)
+    iwpack = np.zeros(n, np.uint64)
+    for s in range(1, logn + 1):
+        h = n >> s
+        stride = 1 << (s - 1)
+        wpack[n - 2 * h:n - h] = _pow_seq(pow(omega, stride, q), h, q)
+        iwpack[n - 2 * h:n - h] = _pow_seq(pow(iomega, stride, q), h, q)
+    out = dict(twist=fwd, untwist=inv * np.uint64(pow(n, -1, q))
+               % np.uint64(q), wpack=wpack, iwpack=iwpack)
+    for k in list(out):
+        out[k + "_sh"] = _shoup_vec(out[k], q)
+    out = {k: v.astype(np.int64) for k, v in out.items()}
+    out["tail_fwd"], out["tail_inv"] = _tail_maps(q, logn, wpack, iwpack)
+    out["tail_pow"] = np.array(
+        [(1 << (TAIL_DIGIT_BITS * t + 32)) % q
+         for t in range(2 * TAIL_DIGITS - 1)], np.int64)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _split_tables(moduli: Tuple[int, ...], logn: int, device: torch.device
+                  ) -> SplitTables:
+    limbs = [_limb_split_tables(q, logn) for q in moduli]
+    return SplitTables(**{k: torch.from_numpy(np.stack([t[k] for t in limbs]))
+                          .to(device) for k in SPLIT_FIELDS})
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -173,20 +291,41 @@ class Ring:
 
     # -- NTT ----------------------------------------------------------------
 
+    def split_tables(self) -> SplitTables:
+        """The split NTT's tables (built on first use, then cached)."""
+        return _split_tables(self.moduli, self.logn, self.device)
+
+    def _split(self) -> bool:
+        return config.ntt_mxu_tail and self.logn >= SPLIT_MIN_LOGN
+
     def ntt(self, a):
         """Forward negacyclic NTT over (..., L, N): standard coefficient
         order in, bit-reversed evaluation order out, canonical. Accepts
         any u32 input (it is reduced first), so it also covers the JAX
         package's ntt(reduce_input=True)."""
-        return ntt_cuda.ntt(a.contiguous(), self.q, self.bar, self.psi,
-                            self.psi_sh)
+        a = a.contiguous()
+        if self._split():
+            t = self.split_tables()
+            head = ntt_cuda.ntt_head(a, self.q, t.twist, t.twist_sh,
+                                     t.wpack, t.wpack_sh)
+            return ntt_cuda.tail(head, self.q, self.r_inv, t.tail_fwd,
+                                 t.tail_pow)
+        return ntt_cuda.ntt(a, self.q, self.bar, self.psi, self.psi_sh)
 
     def intt(self, a):
         """Inverse negacyclic NTT: bit-reversed in, standard order out,
         canonical. Accepts any u32 input, which covers the lazy (< 8q)
         inputs of the JAX package's intt(reduce_input=True)."""
-        return ntt_cuda.intt(a.contiguous(), self.q, self.bar, self.ipsi,
-                             self.ipsi_sh, self.ninv, self.ninv_sh)
+        a = a.contiguous()
+        if self._split():
+            t = self.split_tables()
+            tailed = ntt_cuda.tail(a, self.q, self.r_inv, t.tail_inv,
+                                   t.tail_pow)
+            return ntt_cuda.intt_tailed(tailed, self.q, self.bar, t.iwpack,
+                                        t.iwpack_sh, t.untwist,
+                                        t.untwist_sh)
+        return ntt_cuda.intt(a, self.q, self.bar, self.ipsi, self.ipsi_sh,
+                             self.ninv, self.ninv_sh)
 
 
 @functools.lru_cache(maxsize=None)

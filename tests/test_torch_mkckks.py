@@ -286,7 +286,7 @@ def test_port_imports_no_jax():
     """Neither JAX nor any module of the JAX package mkhe_tpu loads."""
     code = ("import json, sys\n"
             "import mkhe_tpu_torch, mkhe_tpu_torch.mkckks, "
-            "mkhe_tpu_torch.convert\n"
+            "mkhe_tpu_torch.mkbfv, mkhe_tpu_torch.convert\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'mkhe_tpu'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
