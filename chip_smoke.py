@@ -11,9 +11,11 @@ Phases, one line each, then two JSON lines:
   3. kernels  each of the five NTT kernels against its plain PyTorch
               version on the card, bit for bit, at the PN15QP880 QP moduli
               (32 limbs, N = 2^15, batch 8) and again at logN = 10, with
-              any-u32 and < 8q inputs; head + tail against the full
-              forward kernel and tail + tailed inverse against the full
-              inverse kernel; round trips; median times from CUDA events;
+              any-u32 and < 8q inputs; ntt_fwd and ntt_inv also at the
+              CNN's PN14QP433_CNN QP moduli (18 limbs, N = 2^14, batch 8);
+              head + tail against the full forward kernel and tail +
+              tailed inverse against the full inverse kernel; round trips;
+              median times from CUDA events;
   4. mult     the CKKS main path: PN15QP880, 4 parties, keys from
               torch.Generator on the card; three requests of fresh
               encryptions -> Evaluator.mul_relin_new (mult + relin +
@@ -28,8 +30,24 @@ Phases, one line each, then two JSON lines:
               each exactly equal to the plaintext product mod t; the
               split's launch counters must grow and the full kernels' stay
               at 0; the last 4-party mult again with the switch off, off
-              and on must give the same ciphertext bit for bit.
-Then {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+              and on must give the same ciphertext bit for bit;
+  6. cnn      the two-party encrypted MNIST CNN (models/cnn.py, REF
+              layout) at PN14QP433_CNN: CRS and keys (key pairs,
+              relinearization, rotation keys for REF.extra_rots and the
+              powers of two 1..4096, conjugation) from torch.Generator on
+              the card; the model's weights encrypted once under
+              modelOwner; three requests, each a fresh synthetic 28x28
+              image encrypted under dataOwner -> the staged pipeline
+              (conv -> square -> fc1 -> square -> fc2) timed with CUDA
+              events, per layer too -> decrypt, each logit within
+              rtol = atol = 5e-3 of plain_forward and the same argmax;
+              a batched hoisted rotation over fc1's 7 indices equal to 7
+              single ones bit for bit, and a conjugation that decrypts to
+              the conjugate; the NTT launch counters must grow; the
+              key-switched rotations of the requests are counted
+              (profile_cnn.count_rotations).
+Then {"kernels": [...]} (launches summed over phases 4-6) and, last,
+{"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
 fails in phase 1.
@@ -46,7 +64,8 @@ import time
 import numpy as np
 import torch
 
-from mkhe_tpu_torch import config, mkbfv, mkckks, mkrlwe
+from mkhe_tpu_torch import config, mkbfv, mkckks, mkrlwe, profile_cnn
+from mkhe_tpu_torch.models import cnn
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
 
@@ -115,29 +134,26 @@ def _rand(gen, shape, bound):
     return r % bound
 
 
-def phase_kernels(ring15: Ring) -> dict:
+def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
     """Every kernel against its plain version on the card, and the split's
-    compositions against the full kernels; returns per-kernel
-    max_abs_err and the times at logN = 15 (batch 8 of the 32 QP
-    limbs)."""
+    compositions against the full kernels, at the CKKS and BFV paths'
+    logN 15 QP moduli and at logN 10; ntt_fwd / ntt_inv also at the CNN
+    path's shape (logN 14, its 18 QP moduli), the only kernels that path
+    runs. Returns per-kernel max_abs_err and the times at logN 15 (batch
+    8 of the 32 QP limbs)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     err = {name: 0 for name, _, _ in KERNELS}
     mism = comp_mism = 0
-    times = {}
-    for logn in (15, 10):
-        ring = ring15 if logn == 15 else Ring.create(ring15.moduli, logn)
-        st = ring.split_tables()
+    times, times14 = {}, {}
+    ring10 = Ring.create(ring15.moduli, 10)
+    for ring in (ring15, ring14, ring10):
+        split = ring is not ring14
         shape = (BATCH, ring.nlimbs, ring.n)
         q = ring.q[:, None]
         fwd_t = (ring.q, ring.bar, ring.psi, ring.psi_sh)
         inv_t = (ring.q, ring.bar, ring.ipsi, ring.ipsi_sh, ring.ninv,
                  ring.ninv_sh)
-        head_t = (ring.q, st.twist, st.twist_sh, st.wpack, st.wpack_sh)
-        tfwd_t = (ring.q, ring.r_inv, st.tail_fwd, st.tail_pow)
-        tinv_t = (ring.q, ring.r_inv, st.tail_inv, st.tail_pow)
-        itail_t = (ring.q, ring.bar, st.iwpack, st.iwpack_sh, st.untwist,
-                   st.untwist_sh)
         canon = _rand(gen, shape, q)
         any32 = _rand(gen, shape, 1 << 32)
         lazy = _rand(gen, shape, 8 * q)
@@ -146,44 +162,63 @@ def phase_kernels(ring15: Ring) -> dict:
             ("ntt_fwd", K.ntt, K.ntt_plain, fwd_t, canon),
             ("ntt_fwd", K.ntt, K.ntt_plain, fwd_t, any32),
             ("ntt_inv", K.intt, K.intt_plain, inv_t, lazy),
-            ("ntt_fwd_head", K.ntt_head, K.ntt_head_plain, head_t, any32),
-            ("ntt_tail", K.tail, K.tail_plain, tfwd_t, any32),
-            ("ntt_tail", K.tail, K.tail_plain, tinv_t, lazy),
-            ("ntt_inv_tailed", K.intt_tailed, K.intt_tailed_plain, itail_t,
-             any32),
         )
+        # round trip
+        pairs = [(K.intt(K.ntt(canon, *fwd_t), *inv_t), canon)]
+        if split:
+            st = ring.split_tables()
+            head_t = (ring.q, st.twist, st.twist_sh, st.wpack, st.wpack_sh)
+            tfwd_t = (ring.q, ring.r_inv, st.tail_fwd, st.tail_pow)
+            tinv_t = (ring.q, ring.r_inv, st.tail_inv, st.tail_pow)
+            itail_t = (ring.q, ring.bar, st.iwpack, st.iwpack_sh,
+                       st.untwist, st.untwist_sh)
+            cases += (
+                ("ntt_fwd_head", K.ntt_head, K.ntt_head_plain, head_t,
+                 any32),
+                ("ntt_tail", K.tail, K.tail_plain, tfwd_t, any32),
+                ("ntt_tail", K.tail, K.tail_plain, tinv_t, lazy),
+                ("ntt_inv_tailed", K.intt_tailed, K.intt_tailed_plain,
+                 itail_t, any32),
+            )
+            # the split's compositions against the full kernels
+            split_fwd = K.tail(K.ntt_head(any32, *head_t), *tfwd_t)
+            pairs += [(split_fwd, K.ntt(any32, *fwd_t)),
+                      (K.intt_tailed(K.tail(lazy, *tinv_t), *itail_t),
+                       K.intt(lazy, *inv_t)),
+                      (K.intt_tailed(K.tail(split_fwd, *tinv_t), *itail_t),
+                       ring.reduce(any32))]
         for name, kern, plain, tabs, x in cases:
             got, want = kern(x, *tabs), plain(x, *tabs)
             torch.cuda.synchronize()
             mism += int((got != want).sum())
             err[name] = max(err[name], int((got - want).abs().max()))
-        # the split's compositions against the full kernels, round trips
-        split_fwd = K.tail(K.ntt_head(any32, *head_t), *tfwd_t)
-        split_inv = K.intt_tailed(K.tail(lazy, *tinv_t), *itail_t)
-        for got, want in ((split_fwd, K.ntt(any32, *fwd_t)),
-                          (split_inv, K.intt(lazy, *inv_t)),
-                          (K.intt(K.ntt(canon, *fwd_t), *inv_t), canon),
-                          (K.intt_tailed(K.tail(split_fwd, *tinv_t),
-                                         *itail_t), ring.reduce(any32))):
+        for got, want in pairs:
             torch.cuda.synchronize()
             comp_mism += int((got != want).sum())
-        if logn == 15:
-            for name, kern, plain, tabs, x in cases[1:]:
-                if name in times:
-                    continue
-                times[name] = cuda_ms(lambda: kern(x, *tabs), 20)
-                times[name + "_plain"] = cuda_ms(lambda: plain(x, *tabs), 5)
-    print(f"[3 kernels] mismatches {mism} kernel vs plain (5 kernels, logN "
-          f"15 and 10, canonical, any-u32 and <8q inputs), {comp_mism} "
-          f"head+tail vs ntt_fwd and tail+inv_tailed vs ntt_inv (and round "
-          f"trips); logN 15 batch {BATCH} x {ring15.nlimbs} limbs median "
-          "ms: " + ", ".join(
+        if ring is ring10:
+            continue
+        out = times if ring is ring15 else times14
+        for name, kern, plain, tabs, x in cases[1:]:
+            if name in out:
+                continue
+            out[name] = cuda_ms(lambda: kern(x, *tabs), 20)
+            out[name + "_plain"] = cuda_ms(lambda: plain(x, *tabs), 5)
+    print(f"[3 kernels] mismatches {mism} kernel vs plain (5 kernels at "
+          f"logN 15 and 10, ntt_fwd / ntt_inv also at logN 14; canonical, "
+          f"any-u32 and <8q inputs), {comp_mism} head+tail vs ntt_fwd, "
+          f"tail+inv_tailed vs ntt_inv and round trips; logN 15 batch "
+          f"{BATCH} x {ring15.nlimbs} limbs median ms: " + ", ".join(
               f"{name} {times[name]:.4f} (plain {times[name + '_plain']:.4f})"
-              for name, _, _ in KERNELS), flush=True)
+              for name, _, _ in KERNELS)
+          + f"; logN 14 batch {BATCH} x {ring14.nlimbs} limbs (the CNN's "
+          "QP) median ms: " + ", ".join(
+              f"{name} {times14[name]:.4f} "
+              f"(plain {times14[name + '_plain']:.4f})" for name in times14
+              if not name.endswith("_plain")), flush=True)
     if mism or comp_mism:
         raise AssertionError(f"kernels differ from their plain versions in "
-                             f"{mism} values, from the full kernels in "
-                             f"{comp_mism}")
+                             f"{mism} values, from the full kernels and in "
+                             f"round trips in {comp_mism}")
     return {name: dict(max_abs_err=err[name], ms=times[name],
                        plain_ms=times[name + "_plain"])
             for name, _, _ in KERNELS}
@@ -359,15 +394,92 @@ def phase_bfv(params) -> dict:
     return launches
 
 
+def phase_cnn(params) -> dict:
+    """The two-party encrypted CNN inference: keys, the encrypted model,
+    three requests through the staged pipeline, each checked per logit
+    against plain_forward. Returns the launch counts of the requests."""
+    s = profile_cnn.setup(params, cnn.REF, seed=SEED + 21)
+    params, lo, ev, slots = s.params, s.layout, s.ev, s.params.slots
+
+    def request(k):
+        img = profile_cnn.image(lo, SEED + k)
+        ct_img = s.encrypt_image(img)
+        torch.cuda.synchronize()
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        mark("start")
+        out = profile_cnn.infer(s, ct_img, marks=mark)
+        mark("end")
+        torch.cuda.synchronize()
+        ms = {name: events[a].elapsed_time(events[b]) for name, a, b in (
+            ("total", "start", "end"), ("conv", "start", "conv"),
+            ("fc1", "conv", "fc1"), ("fc2", "fc1", "end"))}
+        logits = s.logits(out)
+        want = cnn.plain_forward(img, *s.weights, lo)
+        if not (out.ids == profile_cnn.USERS and logits.shape == want.shape
+                and np.all(np.isfinite(logits))
+                and np.allclose(logits, want, rtol=5e-3, atol=5e-3)
+                and int(np.argmax(logits)) == int(np.argmax(want))):
+            raise AssertionError(f"CNN request {k}: ids {out.ids}, logits "
+                                 f"{logits} against {want}")
+        return ms, float(np.max(np.abs(logits - want))), img, ct_img
+
+    torch.cuda.reset_peak_memory_stats()
+    ntt_cuda.reset_counters()
+    with profile_cnn.count_rotations() as rot:
+        runs = [request(k) for k in range(3)]
+    launches = ntt_cuda.counters()
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) < 1:
+        raise AssertionError(f"the CNN launched no NTT kernel: {launches}")
+    # fc1's batched hoisted rotation against single ones, and conjugation
+    _, _, img, ct = runs[-1]
+    h = ev.hoisted_form(ct)
+    idxs = [i * lo.gap for i in range(1, lo.n_diag)]
+    for r, got in zip(idxs, ev.rotate_hoisted_many_new(ct, idxs, h, s.rtk)):
+        if not torch.equal(got.ct.data,
+                           ev.rotate_hoisted_new(ct, r, h, s.rtk).ct.data):
+            raise AssertionError(f"batched hoisted rotation {r} differs")
+    conj = s.dec.decrypt(ev.conjugate_new(ct, s.cjk), s.sks).value
+    conj_err = float(np.max(np.abs(
+        conj - np.conj(cnn.pack_image(img, slots, lo)))))
+    if not math.log2(max(conj_err, 1e-300)) <= (
+            -math.log2(params.scale) + params.logslots + 12):
+        raise AssertionError(f"conjugation error {conj_err}")
+    layers = {name: [round(ms[name], 3) for ms, _, _, _ in runs]
+              for name in ("conv", "fc1", "fc2")}
+    print(f"[6 cnn] PN14QP433_CNN logN {params.logn} L {params.max_level + 1}"
+          f" + {params.rlwe.pcount} P, alpha {params.rlwe.alpha}, scale "
+          f"2^{math.log2(params.scale):g}, {slots} slots, 2 parties, layout "
+          f"{lo.image}x{lo.image} / {lo.num_kernels} kernels / "
+          f"{lo.num_kernels * lo.conv_out ** 2}->{lo.fc_units}->{lo.classes}"
+          f"; keygen {s.keygen_s:.2f} s ({len(s.rtk.value['dataOwner'])} "
+          f"rotation keys per party), model encryption and key stacks "
+          f"{s.model_s:.2f} s; ms per inference "
+          f"{[round(ms['total'], 3) for ms, _, _, _ in runs]} (first, then "
+          f"warm), per layer {layers}; key-switched rotations counted in the "
+          f"three requests {rot['rotations']}; max logit err "
+          f"{max(e for _, e, _, _ in runs):.3g} (rtol = atol = 5e-3), argmax "
+          f"equal; batched hoisted rotation over {len(idxs)} indices "
+          f"bit-identical to single ones; conjugation err {conj_err:.3g}; "
+          f"launches { {k: launches[k] for k in ('ntt_fwd', 'ntt_inv')} }; "
+          f"peak mem {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
     params = mkckks.PN15QP880("cuda")
-    stats = phase_kernels(params.rlwe.ring_qp)
-    launches = phase_mult(params)
-    split = phase_bfv(mkbfv.PN15QP880("cuda"))
-    launches.update({k: v for k, v in split.items()
-                     if k not in ("ntt_fwd", "ntt_inv")})
+    params_cnn = mkckks.PN14QP433_CNN("cuda")
+    stats = phase_kernels(params.rlwe.ring_qp, params_cnn.rlwe.ring_qp)
+    phases = (phase_mult(params), phase_bfv(mkbfv.PN15QP880("cuda")),
+              phase_cnn(params_cnn))
+    launches = {name: sum(p[name] for p in phases) for name, _, _ in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name], **stats[name]}

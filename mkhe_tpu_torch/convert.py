@@ -107,3 +107,21 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int64 tensor of u32 values -> numpy uint32 (the JAX layout)."""
     return t.cpu().numpy().astype(np.uint32)
 
+
+def rotation_key_set(keys: Mapping[Tuple[str, int], np.ndarray],
+                     device=None) -> mkrlwe.RotationKeySet:
+    """keys: (id, rot_idx) -> data, e.g. from the JAX package's
+    RotationKeySet.value[id][rot_idx].data."""
+    out = mkrlwe.RotationKeySet()
+    for (pid, rot_idx), data in keys.items():
+        out.add(mkrlwe.RotationKey(id=pid, rot_idx=int(rot_idx),
+                                   data=tensor(data, device)))
+    return out
+
+
+def conjugation_key_set(keys: Mapping[str, np.ndarray], device=None
+                        ) -> mkrlwe.ConjugationKeySet:
+    out = mkrlwe.ConjugationKeySet()
+    for pid, data in keys.items():
+        out.add(mkrlwe.ConjugationKey(id=pid, data=tensor(data, device)))
+    return out

@@ -38,3 +38,12 @@ class Encryptor:
                               ).to(p.rlwe.device)
         ct = self._enc.encrypt(pt, pk, level=level)
         return Ciphertext(ct=ct, scale=p.scale)
+
+    def encrypt_ptxt(self, pt, pk: mkrlwe.PublicKey, scale: float
+                     ) -> Ciphertext:
+        """Encrypt an encoded (Lq, N) coefficient-domain plaintext, a
+        tensor or encode_msg's uint32 array, at its level."""
+        if not isinstance(pt, torch.Tensor):
+            pt = torch.from_numpy(np.asarray(pt).astype(np.int64))
+        ct = self._enc.encrypt(pt.to(self.params.rlwe.device), pk)
+        return Ciphertext(ct=ct, scale=scale)

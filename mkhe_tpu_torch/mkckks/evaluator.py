@@ -1,7 +1,9 @@
-"""Multi-key CKKS evaluator (port of mkhe_tpu/mkckks/evaluator.py:155-288):
-add/sub with id-set union, DropLevel, Rescale, HoistedForm and MulRelin
-(+hoisted). PyTorch runs eagerly, so the JAX package's jitted cores become
-direct calls.
+"""Multi-key CKKS evaluator (port of mkhe_tpu/mkckks/evaluator.py): add/sub
+with id-set union and scale alignment, MultByConst, DropLevel, Rescale,
+HoistedForm, MulRelin (+hoisted), the lazily relinearized inner product
+MulRelinSum, MulPtxt, Rotate (+hoisted, one or many indices, with the
+power-of-two fallback) and Conjugate. PyTorch runs eagerly, so the JAX
+package's jitted cores become direct calls.
 """
 
 from __future__ import annotations
@@ -9,12 +11,14 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import mkrlwe
 from ..mkrlwe import keyswitch as ksw
 from ..mkrlwe.elements import Ciphertext as RCt, union_ids
 from ..ops import basis
+from ..ops import modmath as mm
 from .params import Parameters
 from .elements import Ciphertext
 
@@ -39,13 +43,13 @@ class Evaluator:
                 self.drop_level(ct1, ct1.level - level), level)
 
     def _align_scales(self, ct0: Ciphertext, ct1: Ciphertext):
-        """The JAX package aligns unequal scales with an integer
-        MultByConst (evaluateInPlace, mkckks/evaluator.go:200-304)."""
+        """Scale alignment by an integer MultByConst (evaluateInPlace,
+        mkckks/evaluator.go:200-304)."""
         s0, s1 = ct0.scale, ct1.scale
-        if math.floor(max(s0, s1) / min(s0, s1)) > 1:
-            raise NotImplementedError(
-                "aligning unequal scales needs mult_by_const_new, not yet "
-                "ported (ROADMAP.md A.8, mult_by_const)")
+        if s1 > s0 and math.floor(s1 / s0) > 1:
+            ct0 = self.mult_by_const_new(ct0, math.floor(s1 / s0))
+        elif s0 > s1 and math.floor(s0 / s1) > 1:
+            ct1 = self.mult_by_const_new(ct1, math.floor(s0 / s1))
         return ct0, ct1
 
     def _combine(self, ct0: Ciphertext, ct1: Ciphertext, op, lone_b):
@@ -74,6 +78,40 @@ class Evaluator:
     def sub_new(self, ct0: Ciphertext, ct1: Ciphertext) -> Ciphertext:
         return self._combine(ct0, ct1, lambda r, x, y: r.sub(x, y),
                              lambda r, y: r.neg(y))
+
+    # -- constants ----------------------------------------------------------
+
+    def mult_by_const_new(self, ct: Ciphertext, const) -> Ciphertext:
+        """Multiply by a scalar constant (MultByConst,
+        mkckks/evaluator.go:117-198): data * (sr + si X^(N/2)), X^(N/2)
+        being the image of i. Integer-valued constants keep the scale;
+        fractional ones are scaled by q_level."""
+        c = complex(const)
+        level = ct.level
+        scale = 1.0
+        if (c.real != int(c.real)) or (c.imag != int(c.imag)):
+            scale = float(self.params.rlwe.q_moduli[level])
+        sr = int(round(c.real * scale))
+        si = int(round(c.imag * scale))
+        ring = self.params.rlwe.ring_q_at(level)
+        data = ct.ct.data
+        out = None
+        if sr:
+            out = ring.mul_scalar_mont(data, self._mont_scalar(sr, ring))
+        if si:
+            h = data.shape[-1] // 2   # X^(N/2) * a, negacyclic
+            rolled = torch.cat([ring.neg(data[..., h:]), data[..., :h]],
+                               dim=-1)
+            term = ring.mul_scalar_mont(rolled, self._mont_scalar(si, ring))
+            out = term if out is None else ring.add(out, term)
+        return Ciphertext(ct=RCt(ids=ct.ids, data=data if out is None
+                                 else out), scale=ct.scale * scale)
+
+    @staticmethod
+    def _mont_scalar(x: int, ring) -> torch.Tensor:
+        """x mod q_i in Montgomery form, per limb: (L,) on the device."""
+        return torch.tensor([mm.to_mont_host(x % q, q) for q in ring.moduli],
+                            dtype=torch.int64, device=ring.device)
 
     # -- level / scale management ------------------------------------------
 
@@ -127,3 +165,108 @@ class Evaluator:
                                 level, h0, h1,
                                 square=square and h0 is h1)
         return self.rescale(Ciphertext(ct=out, scale=ct0.scale * ct1.scale))
+
+    def mul_relin_sum_new(self, pairs, rlk_set) -> Ciphertext:
+        """Inner product sum_i a_i * b_i with lazy relinearization
+        (ksw.mul_and_relin_sum): one deferred ModDown / t-path for the
+        whole sum instead of one per term, then one rescale. pairs: (ct0,
+        ct1) or (ct0, ct1, h0, h1), all with the same product scale."""
+        pairs = [p if len(p) == 4 else (p[0], p[1], None, None)
+                 for p in pairs]
+        level = min(min(p[0].level, p[1].level) for p in pairs)
+        scale = pairs[0][0].scale * pairs[0][1].scale
+        rpairs = []
+        for c0, c1, h0, h1 in pairs:
+            if c0.scale * c1.scale != scale:
+                raise ValueError("pairs must share the product scale")
+            c0a, c1a, _ = self._align_levels(c0, c1)
+            rpairs.append((mkrlwe.drop_level(c0a.ct, c0a.level - level),
+                           mkrlwe.drop_level(c1a.ct, c1a.level - level),
+                           h0, h1))
+        rlk = rlk_set.stacked(union_ids(rpairs[0][0].ids, rpairs[0][1].ids))
+        out = ksw.mul_and_relin_sum(self.params.rlwe, rpairs, rlk, level)
+        return self.rescale(Ciphertext(ct=out, scale=scale))
+
+    def mul_ptxt_new(self, ct: Ciphertext, pt, pt_scale: float
+                     ) -> Ciphertext:
+        """Multiply by an encoded plaintext (MulPtxtNew,
+        mkckks/evaluator.go:465-481), then rescale. pt: (Lq, N)
+        coefficient domain, a tensor or Encryptor.encode_msg's uint32
+        array (copied to the device on every call: pass a tensor where it
+        is reused)."""
+        level = ct.level
+        ring = self.params.rlwe.ring_q_at(level)
+        if not isinstance(pt, torch.Tensor):
+            pt = torch.from_numpy(np.asarray(pt).astype(np.int64))
+        pt = pt[..., :level + 1, :].to(ring.device)
+        pm = ring.to_mont(ring.ntt(pt))
+        data = ring.intt(ring.mul_mont(ring.ntt(ct.ct.data), pm[None]))
+        return self.rescale(Ciphertext(ct=RCt(ids=ct.ids, data=data),
+                                       scale=ct.scale * pt_scale))
+
+    # -- rotations ----------------------------------------------------------
+
+    def _rotate(self, ct: Ciphertext, rot_idx: int, rtk_set, h
+                ) -> Ciphertext:
+        out = ksw.rotate(self.params.rlwe, ct.ct, rot_idx,
+                         rtk_set.stacked(ct.ids, rot_idx), h)
+        return Ciphertext(ct=out, scale=ct.scale)
+
+    def _normalize_rot(self, rot_idx: int) -> int:
+        return rot_idx % (self.params.n // 2)
+
+    def rotate_new(self, ct: Ciphertext, rot_idx: int, rtk_set
+                   ) -> Ciphertext:
+        """Rotate the slots left by rot_idx. Without a CRS at rot_idx it
+        rotates by the powers of two of rot_idx's binary form, in
+        ascending order (evaluator.go:516-524), and raises KeyError if
+        one of them has no CRS either."""
+        rot_idx = self._normalize_rot(rot_idx)
+        if rot_idx == 0:
+            return ct
+        crs = self.params.rlwe.crs
+        if rot_idx in crs:
+            return self._rotate(ct, rot_idx, rtk_set, None)
+        steps = [1 << b for b in range(rot_idx.bit_length())
+                 if rot_idx >> b & 1]
+        missing = [k for k in steps if k not in crs]
+        if missing:
+            raise KeyError(f"no CRS for rotation {rot_idx} nor for its "
+                           f"power-of-two steps {missing}; call add_crs")
+        for k in steps:
+            ct = self._rotate(ct, k, rtk_set, None)
+        return ct
+
+    def _check_crs(self, rot_idx: int) -> None:
+        if rot_idx not in self.params.rlwe.crs:
+            raise KeyError(f"no CRS for rotation {rot_idx}: a hoisted "
+                           "rotation needs it (the reference panics too, "
+                           "evaluator.go:615)")
+
+    def rotate_hoisted_new(self, ct: Ciphertext, rot_idx: int, h, rtk_set
+                           ) -> Ciphertext:
+        rot_idx = self._normalize_rot(rot_idx)
+        if rot_idx == 0:
+            return ct
+        self._check_crs(rot_idx)
+        return self._rotate(ct, rot_idx, rtk_set, h)
+
+    def rotate_hoisted_many_new(self, ct: Ciphertext, rot_idxs, h,
+                                rtk_set) -> list:
+        """All R rotations of one hoisted ciphertext in one batched pass
+        (ksw.rotate_hoisted_batched), bit-identical to R
+        rotate_hoisted_new calls (the CNN's FC1, cnn/cnn.go:42-71)."""
+        idxs = tuple(self._normalize_rot(r) for r in rot_idxs)
+        if any(i == 0 for i in idxs):
+            raise ValueError("rotation by 0 is the identity; drop it")
+        for i in idxs:
+            self._check_crs(i)
+        rtk_multi = torch.stack([rtk_set.stacked(ct.ids, i) for i in idxs])
+        data = ksw.rotate_hoisted_batched(self.params.rlwe, ct.ct, idxs,
+                                          rtk_multi, h)
+        return [Ciphertext(ct=RCt(ids=ct.ids, data=data[r]),
+                           scale=ct.scale) for r in range(len(idxs))]
+
+    def conjugate_new(self, ct: Ciphertext, cjk_set) -> Ciphertext:
+        out = ksw.conjugate(self.params.rlwe, ct.ct, cjk_set.stacked(ct.ids))
+        return Ciphertext(ct=out, scale=ct.scale)

@@ -37,6 +37,9 @@ class Parameters:
     def max_level(self) -> int:
         return self.rlwe.max_level
 
+    def add_crs(self, idx: int) -> "Parameters":
+        return dataclasses.replace(self, rlwe=mkrlwe.add_crs(self.rlwe, idx))
+
 
 def _distinct(*groups):
     seen = set()

@@ -6,6 +6,8 @@ With CRS a = crs[0] and u = crs[-1], all NTT + Montgomery:
   pk:   (-a_0 s + e, a_0)
   swk(s'): g*s' + e, where digit i of g adds P*s' on the i-th RNS block
   rlk:  b = -s a + e;  d = swk(s) - r a;  v = -(s u + swk(r))
+  rtk:  swk(s) - a^(rot) sigma_{g^-1}(s)        (keygen.go:190-229)
+  cjk:  swk(sigma_conj(s)) - a^(conj) s         (keygen.go:240-267)
 
 The array work lives in the "cores" below, which take the signed samples
 as tensors, so a test can feed this package and the JAX one the same
@@ -19,8 +21,10 @@ from typing import Tuple
 import torch
 
 from ..ops import sampling
+from ..ops.ring import galois_element_conj, galois_element_rot
 from .params import Parameters
-from .keys import SecretKey, PublicKey, SwitchingKey, RelinearizationKey
+from .keys import (SecretKey, PublicKey, SwitchingKey, RelinearizationKey,
+                   RotationKey, ConjugationKey)
 
 
 # -- cores -------------------------------------------------------------------
@@ -75,6 +79,20 @@ def _relin_v_core(rp: Parameters, rg, s_mont) -> torch.Tensor:
     return ring.neg(ring.add(ring.mul_mont(u, s_mont[None]), rg))
 
 
+def _rotation_key_core(rp: Parameters, sg, s_mont, rot_idx: int,
+                       gal_inv: int) -> torch.Tensor:
+    ring = rp.ring_qp
+    sk_out = ring.permute_ntt(s_mont, gal_inv)
+    a = rp.crs[rot_idx][:sg.shape[0]]
+    return ring.sub(sg, ring.mul_mont(a, sk_out[None]))
+
+
+def _conjugation_key_core(rp: Parameters, sg_conj, s_mont) -> torch.Tensor:
+    ring = rp.ring_qp
+    a = rp.crs[-2][:sg_conj.shape[0]]
+    return ring.sub(sg_conj, ring.mul_mont(a, s_mont[None]))
+
+
 # ----------------------------------------------------------------------------
 
 
@@ -123,3 +141,35 @@ class KeyGenerator:
         d = _relin_d_core(p, self.gen_switching_key(sk).data, r.data)
         v = _relin_v_core(p, self.gen_switching_key(r).data, sk.data)
         return RelinearizationKey(id=sk.id, b=b, d=d, v=v)
+
+    def gen_rotation_key(self, rot_idx: int, sk: SecretKey) -> RotationKey:
+        """Key of the rotation by rot_idx slots (a negative index counts
+        from the end: rot_idx mod N/2). Needs the CRS at that index."""
+        p = self.params
+        if rot_idx < 0:
+            rot_idx %= p.n // 2
+        if rot_idx not in p.crs:
+            raise KeyError(f"no CRS for rotation {rot_idx}; call add_crs "
+                           "first (the reference panics too, "
+                           "keygen.go:202-205)")
+        gal = galois_element_rot(rot_idx, p.n)
+        sg = self.gen_switching_key(sk).data
+        data = _rotation_key_core(p, sg, sk.data, rot_idx,
+                                  pow(gal, -1, 2 * p.n))
+        return RotationKey(id=sk.id, rot_idx=rot_idx, data=data)
+
+    def gen_default_rotation_keys(self, sk: SecretKey, rtk_set) -> None:
+        """The power-of-two rotation keys 1, 2, ..., N/4 (keygen.go:
+        232-237)."""
+        rot = 1
+        while rot < self.params.n // 2:
+            rtk_set.add(self.gen_rotation_key(rot, sk))
+            rot *= 2
+
+    def gen_conjugation_key(self, sk: SecretKey) -> ConjugationKey:
+        """Needs the CRS at -2."""
+        p = self.params
+        s_conj = p.ring_qp.permute_ntt(sk.data, galois_element_conj(p.n))
+        sg = self.gen_switching_key(SecretKey(id=sk.id, data=s_conj)).data
+        return ConjugationKey(id=sk.id,
+                              data=_conjugation_key_core(p, sg, sk.data))

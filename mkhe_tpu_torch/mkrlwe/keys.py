@@ -6,7 +6,8 @@ Storage conventions, the JAX package's:
   - public keys: (2, Lq+Lp, N) NTT + Montgomery, pk = (-a s + e, a)
   - relinearization keys: v in NTT + Montgomery; b and d in NTT +
     DOUBLE-Montgomery (value * 2^64 mod q), so the x/y aggregation of
-    keyswitch._aggregate_keys lands directly in Montgomery form.
+    keyswitch._aggregate_keys lands directly in Montgomery form;
+  - rotation and conjugation keys: switching-key shaped, NTT + Montgomery.
 """
 
 from __future__ import annotations
@@ -44,6 +45,19 @@ class RelinearizationKey:
     id: str = ""
 
 
+@dataclasses.dataclass(frozen=True)
+class RotationKey:
+    data: torch.Tensor  # (beta, Lq+Lp, N)
+    id: str = ""
+    rot_idx: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ConjugationKey:
+    data: torch.Tensor  # (beta, Lq+Lp, N)
+    id: str = ""
+
+
 class KeySet:
     """Generic id -> key registry (the reference's *Set types)."""
 
@@ -67,20 +81,60 @@ class PublicKeySet(KeySet):
     pass
 
 
-class RelinearizationKeySet(KeySet):
+class _StackedKeySet(KeySet):
+    """A KeySet whose stacks over ids are memoised; add drops them, so a
+    key added later is never shadowed (the JAX package's RotationKeySet
+    never drops its stacks)."""
+
     def __init__(self):
         super().__init__()
         self._cache = {}
 
     def add(self, key):
-        super().add(key)
+        self._store(key)
         self._cache.clear()
 
+    def _store(self, key):
+        super().add(key)
+
+    def _memo(self, key, make):
+        if key not in self._cache:
+            self._cache[key] = make()
+        return self._cache[key]
+
+
+class RelinearizationKeySet(_StackedKeySet):
     def stacked(self, ids: Tuple[str, ...]):
         """(b, d, v) stacked over ids, each (k, beta, Lqp, N); memoized so
         repeated evaluator calls reuse the tensors."""
-        if ids not in self._cache:
-            self._cache[ids] = tuple(
-                torch.stack([getattr(self.get(i), f) for i in ids])
-                for f in ("b", "d", "v"))
-        return self._cache[ids]
+        return self._memo(ids, lambda: tuple(
+            torch.stack([getattr(self.get(i), f) for i in ids])
+            for f in ("b", "d", "v")))
+
+
+class RotationKeySet(_StackedKeySet):
+    """id -> rot_idx -> RotationKey."""
+
+    def _store(self, key: RotationKey):
+        self.value.setdefault(key.id, {})[key.rot_idx] = key
+
+    def get(self, pid: str, rot_idx: int) -> RotationKey:
+        if not self.has(pid, rot_idx):
+            raise KeyError(f"no rotation key for id {pid!r}, rotation "
+                           f"{rot_idx}")
+        return self.value[pid][rot_idx]
+
+    def has(self, pid: str, rot_idx: int) -> bool:
+        return pid in self.value and rot_idx in self.value[pid]
+
+    def stacked(self, ids: Tuple[str, ...], rot_idx: int) -> torch.Tensor:
+        """(k, beta, Lqp, N) stacked over ids, memoised."""
+        return self._memo((ids, rot_idx), lambda: torch.stack(
+            [self.get(i, rot_idx).data for i in ids]))
+
+
+class ConjugationKeySet(_StackedKeySet):
+    def stacked(self, ids: Tuple[str, ...]) -> torch.Tensor:
+        """(k, beta, Lqp, N) stacked over ids, memoised."""
+        return self._memo(ids, lambda: torch.stack(
+            [self.get(i).data for i in ids]))

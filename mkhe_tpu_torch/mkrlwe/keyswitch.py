@@ -1,5 +1,6 @@
-"""Gadget decomposition, external products and the KKLSS multi-key
-multiply-relinearize (port of mkhe_tpu/mkrlwe/keyswitch.py:39-314).
+"""Gadget decomposition, external products, the KKLSS multi-key
+multiply-relinearize (also as a lazily relinearized sum of products), and
+rotation and conjugation (port of mkhe_tpu/mkrlwe/keyswitch.py).
 
 Every per-party loop of the reference is a batched tensor op over a party
 axis. Digit and party contractions are sums of products reduced once
@@ -22,7 +23,8 @@ import torch
 
 from ..ops import basis
 from ..ops import modmath as mm
-from ..ops.ring import Ring
+from ..ops.ring import (Ring, coeff_perm, galois_element_conj,
+                        galois_element_rot)
 from .params import Parameters
 from .elements import Ciphertext, HoistedCiphertext, union_ids
 
@@ -144,6 +146,49 @@ def _rows(t, sel):
     return t[torch.tensor(sel, device=t.device)]
 
 
+def _digits(params: Parameters, h: Optional[HoistedCiphertext], d,
+            level: int) -> torch.Tensor:
+    """The party polys' digits: hoisted ones sliced to the level, or a
+    fresh decomposition of d[1:]."""
+    if h is not None:
+        return slice_digits(params, h.digits, level)
+    return decompose(params, d[1:], level)
+
+
+def _tensor_ntt(ring_q: Ring, nt0, nt1, ids0, ids1, ids) -> torch.Tensor:
+    """The tensor terms of ct0 x ct1, NTT domain, (1 + k, Lq, N):
+    out_0 = ct0_0 ct1_0, out_j = ct0_0 ct1_j + ct0_j ct1_0."""
+    nt0_0m = ring_q.to_mont(nt0[0])
+    nt1_0m = ring_q.to_mont(nt1[0])
+    out = [ring_q.mul_mont(nt1[0], nt0_0m)]
+    for pid in ids:
+        acc = None
+        if pid in ids0:
+            acc = ring_q.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
+        if pid in ids1:
+            t = ring_q.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
+            acc = t if acc is None else ring_q.add(acc, t)
+        out.append(acc)
+    return torch.stack(out)
+
+
+def _relin_keys(params: Parameters, rlk_stacked, ids, ids0, ids1,
+                level: int):
+    """(d, b, v) keys of the operands' parties and the CRS u, at the
+    level; the row indices 1 + sel0 and 1 + sel1 of ids0 and ids1 in the
+    output."""
+    b_all, d_all, v_all = rlk_stacked  # each (k_union, beta, Lqp, N)
+    sel0 = [ids.index(i) for i in ids0]
+    sel1 = [ids.index(i) for i in ids1]
+    keys = (slice_swk(params, _rows(d_all, sel0), level),
+            slice_swk(params, _rows(b_all, sel1), level),
+            slice_swk(params, _rows(v_all, sel0), level),
+            params.crs_at(-1, level))
+    dev = d_all.device
+    return (keys, torch.tensor([1 + s for s in sel0], device=dev),
+            torch.tensor([1 + s for s in sel1], device=dev))
+
+
 def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
                   rlk_stacked: Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor],
@@ -177,42 +222,20 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
         k0 = d0.shape[0] - 1
         dec0, dec1 = both[:k0], both[k0:]
     else:
-        dec0 = (slice_digits(params, h0.digits, level) if h0 is not None
-                else decompose(params, d0[1:], level))
+        dec0 = _digits(params, h0, d0, level)
         if square and (h1 is None or h1 is h0 or h1.digits is dec0):
             dec1 = dec0
         else:
-            dec1 = (slice_digits(params, h1.digits, level)
-                    if h1 is not None
-                    else decompose(params, d1[1:], level))
+            dec1 = _digits(params, h1, d1, level)
 
-    b_all, d_all, v_all = rlk_stacked  # each (k_union, beta, Lqp, N)
-    sel0 = [ids.index(i) for i in ids0]
-    sel1 = [ids.index(i) for i in ids1]
-    d_keys = slice_swk(params, _rows(d_all, sel0), level)
-    b_keys = slice_swk(params, _rows(b_all, sel1), level)
-    v_keys = slice_swk(params, _rows(v_all, sel0), level)
-    u_key = params.crs_at(-1, level)
-
+    (d_keys, b_keys, v_keys, u_key), i0, i1 = _relin_keys(
+        params, rlk_stacked, ids, ids0, ids1, level)
     x = _aggregate_keys(params, dec0, d_keys, level)
     y = _aggregate_keys(params, dec1, b_keys, level)
 
-    # tensor terms (NTT over Q limbs only)
     nt0 = ring_q.ntt(d0)
     nt1 = nt0 if square else ring_q.ntt(d1)
-    nt0_0m = ring_q.to_mont(nt0[0])
-    nt1_0m = ring_q.to_mont(nt1[0])
-
-    out = [ring_q.mul_mont(nt1[0], nt0_0m)]
-    for pid in ids:
-        acc = None
-        if pid in ids0:
-            acc = ring_q.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
-        if pid in ids1:
-            t = ring_q.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
-            acc = t if acc is None else ring_q.add(acc, t)
-        out.append(acc)
-    out_arr = ring_q.intt(torch.stack(out))
+    out_arr = ring_q.intt(_tensor_ntt(ring_q, nt0, nt1, ids0, ids1, ids))
 
     # out_j += Ext(ct1_j, x); t_i = Ext(ct0_i, y): one batched
     # iNTT + ModDown for both (poly-wise, so bit-identical).
@@ -221,7 +244,6 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
     k1 = len(ids1)
     zt = mod_down_qp(params, torch.cat([z1_ntt, t_ntt]), level)
     z1, t = zt[:k1], zt[k1:]                       # (k1|k0, Lq, N)
-    i1 = torch.tensor([1 + s for s in sel1], device=out_arr.device)
     out_arr[i1] = ring_q.add(out_arr[i1], z1)
 
     # out_0 += Ext(Dec t_i, v_i); out_i += Ext(Dec t_i, u): again one
@@ -231,7 +253,158 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
     zu_ntt = external_product_ntt(params, dec_t, u_key, level)
     vz = mod_down_qp(params, torch.cat([v_ntt[None], zu_ntt]), level)
     out_arr[0] = ring_q.add(out_arr[0], vz[0])
-    i0 = torch.tensor([1 + s for s in sel0], device=out_arr.device)
     out_arr[i0] = ring_q.add(out_arr[i0], vz[1:])
 
     return Ciphertext(ids=ids, data=out_arr)
+
+
+def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int
+                      ) -> Ciphertext:
+    """sum_i MulAndRelin(a_i, b_i) with the relinearization tail deferred
+    across the whole inner product (lazy relinearization,
+    mkhe_tpu/mkrlwe/keyswitch.py:317-407).
+
+    pairs: (ct0, ct1, h0, h1) with the same id sets in every pair (h0, h1
+    may be None). The tensor terms and the z1 and t products are summed in
+    the NTT domain, so the sum costs one iNTT of the tensor sum, one
+    iNTT + ModDown for z1, and one ModDown, re-decomposition and v/u
+    products for t, instead of one of each per pair. It decrypts to
+    sum_i a_i b_i with one rounding instead of one per pair: it is not
+    bit-identical to a sum of mul_and_relin results.
+    """
+    ids0, ids1 = pairs[0][0].ids, pairs[0][1].ids
+    ids = union_ids(ids0, ids1)
+    if any(p[0].ids != ids0 or p[1].ids != ids1 for p in pairs[1:]):
+        raise ValueError("mul_and_relin_sum needs identical id sets "
+                         "across pairs")
+    ring_q = params.ring_q_at(level)
+    ring_qp = params.ring_qp_at(level)
+    (d_keys, b_keys, v_keys, u_key), i0, i1 = _relin_keys(
+        params, rlk_stacked, ids, ids0, ids1, level)
+
+    out_ntt = z1_qp = t_qp = None   # NTT-domain sums over the pairs
+    for ct0, ct1, h0, h1 in pairs:
+        square = ct0.data is ct1.data
+        d0 = ct0.data[..., :level + 1, :]
+        d1 = d0 if square else ct1.data[..., :level + 1, :]
+        dec0 = _digits(params, h0, d0, level)
+        if square and (h1 is None or h1 is h0):
+            dec1 = dec0
+        else:
+            dec1 = _digits(params, h1, d1, level)
+        x = _aggregate_keys(params, dec0, d_keys, level)
+        y = _aggregate_keys(params, dec1, b_keys, level)
+
+        nt0 = ring_q.ntt(d0)
+        nt1 = nt0 if square else ring_q.ntt(d1)
+        tensor = _tensor_ntt(ring_q, nt0, nt1, ids0, ids1, ids)
+        z1 = external_product_ntt(params, dec1, x, level)
+        t = external_product_ntt(params, dec0, y, level)
+        if out_ntt is None:
+            out_ntt, z1_qp, t_qp = tensor, z1, t
+        else:
+            out_ntt = ring_q.add(out_ntt, tensor)
+            z1_qp = ring_qp.add(z1_qp, z1)
+            t_qp = ring_qp.add(t_qp, t)
+
+    out_arr = ring_q.intt(out_ntt)
+    out_arr[i1] = ring_q.add(out_arr[i1], mod_down_qp(params, z1_qp, level))
+    dec_t = decompose(params, mod_down_qp(params, t_qp, level), level)
+    v_sum = mod_down_qp(params, _sum_parties_ntt(params, dec_t, v_keys,
+                                                 level), level)
+    out_arr[0] = ring_q.add(out_arr[0], v_sum)
+    zu = external_product(params, dec_t, u_key, level)
+    out_arr[i0] = ring_q.add(out_arr[i0], zu)
+    return Ciphertext(ids=ids, data=out_arr)
+
+
+# ----------------------------------------------------------------------------
+# Rotate / Conjugate
+# ----------------------------------------------------------------------------
+
+def _switch_parties(params: Parameters, c0, dec, swks, a, level: int
+                    ) -> torch.Tensor:
+    """(c0 + sum_i Ext(dec_i, swk_i), Ext(dec_1, a), ..., Ext(dec_k, a)),
+    (..., k+1, Lq, N) coefficient domain, with one batched iNTT + ModDown
+    (poly-wise, bit-identical to separate calls). dec (..., k, beta, Lqp,
+    N), swks broadcastable to it, a (..., beta, Lqp, N) broadcastable
+    against dec's party axis."""
+    s_ntt = _sum_parties_ntt(params, dec, swks, level)
+    ci_ntt = external_product_ntt(params, dec, a, level)
+    both = mod_down_qp(params, torch.cat([s_ntt.unsqueeze(-3), ci_ntt],
+                                         dim=-3), level)
+    c0 = params.ring_q_at(level).add(c0, both[..., 0, :, :])
+    return torch.cat([c0.unsqueeze(-3), both[..., 1:, :, :]], dim=-3)
+
+
+def rotation_tables(params: Parameters, rot_idx: int):
+    """The coefficient-domain Galois map of a rotation by rot_idx slots
+    (X -> X^g with sign fold, keyswitch.go:266-296) as (src, sign)
+    tensors on the params' device."""
+    return coeff_perm(params.logn, galois_element_rot(rot_idx, params.n),
+                      params.device)
+
+
+def rotate_with(params: Parameters, ct: Ciphertext, rtk_stacked, a_crs,
+                perm_src, perm_sign,
+                h: Optional[HoistedCiphertext] = None) -> Ciphertext:
+    """Rotation core, given the rotation keys (k, beta, Lqp, N), the CRS
+    and the Galois tables of rotation_tables."""
+    level = ct.level
+    out = _switch_parties(params, ct.data[0],
+                          _digits(params, h, ct.data, level),
+                          slice_swk(params, rtk_stacked, level), a_crs,
+                          level)
+    g = out.index_select(-1, perm_src)
+    return Ciphertext(ids=ct.ids, data=torch.where(
+        perm_sign, params.ring_q_at(level).neg(g), g))
+
+
+def rotate(params: Parameters, ct: Ciphertext, rot_idx: int, rtk_stacked,
+           h: Optional[HoistedCiphertext] = None) -> Ciphertext:
+    """Slot rotation (keyswitch.go:234-298 / RotateHoisted):
+      out_0 = ct_0 + sum_i Ext(ct_i, rtk_i);  out_i = Ext(ct_i, a_rot),
+    then the coefficient-domain Galois map X -> X^g with sign fold."""
+    if rot_idx < 0:
+        rot_idx %= params.n // 2
+    src, sign = rotation_tables(params, rot_idx)
+    return rotate_with(params, ct, rtk_stacked,
+                       params.crs_at(rot_idx, ct.level), src, sign, h)
+
+
+def rotate_hoisted_batched(params: Parameters, ct: Ciphertext,
+                           rot_idxs: Sequence[int], rtk_multi,
+                           h: HoistedCiphertext) -> torch.Tensor:
+    """R rotations of one hoisted ciphertext in one batched pass (the
+    reference reuses one decomposition across FC1's rotations,
+    cnn/cnn.go:42-71, keyswitch_hoisted.go:183-247). The digits broadcast
+    over the R axis; they are not copied R times.
+
+    rtk_multi: (R, k, beta, Lqp, N) rotation keys, one stack per index.
+    Returns data (R, k+1, Lq, N), bit-identical to R calls of rotate()."""
+    level = ct.level
+    dec = slice_digits(params, h.digits, level)          # (k, beta, Lqp, N)
+    a_multi = torch.stack([params.crs_at(i, level) for i in rot_idxs])
+    tables = [rotation_tables(params, i) for i in rot_idxs]
+    src = torch.stack([s for s, _ in tables])            # (R, N)
+    sign = torch.stack([g for _, g in tables])
+    out = _switch_parties(params, ct.data[0], dec[None],
+                          slice_swk(params, rtk_multi, level),
+                          a_multi[:, None], level)       # (R, k+1, Lq, N)
+    g = torch.gather(out, -1, src[:, None, None, :].expand(out.shape))
+    return torch.where(sign[:, None, None, :],
+                       params.ring_q_at(level).neg(g), g)
+
+
+def conjugate(params: Parameters, ct: Ciphertext, cjk_stacked
+              ) -> Ciphertext:
+    """Conjugation (keyswitch.go:302-332): permute first, then
+    key-switch with the conjugation keys and the CRS at -2."""
+    level = ct.level
+    permuted = params.ring_q_at(level).permute_coeffs(
+        ct.data, galois_element_conj(params.n))
+    data = _switch_parties(params, permuted[0],
+                           decompose(params, permuted[1:], level),
+                           slice_swk(params, cjk_stacked, level),
+                           params.crs_at(-2, level), level)
+    return Ciphertext(ids=ct.ids, data=data)

@@ -5,11 +5,12 @@ polynomial vector, NTT domain by fiat, stored in Montgomery form. Each is
 drawn from a torch.Generator seeded from (crs_seed, idx), so Parameters
 built independently on the same kind of device agree.
 
-Only the CRS the ported paths use are drawn: 0 (public and
-relinearization keys), -1 (the relinearization u) and -3 (the second half
-of the MKBFV relinearization key, mkhe_tpu/mkbfv/keygen.py:77-78). At
-PN15QP880 each is 117 MB of int64; the rotation and conjugation CRS come
-with rotation.
+Parameters draw only 0 (public and relinearization keys), -1 (the
+relinearization u) and -3 (the second half of the MKBFV relinearization
+key, mkhe_tpu/mkbfv/keygen.py:77-78). The JAX package also draws -2 and
+every power of two below N/2 up front; here a caller adds the rotation
+and conjugation CRS it needs with add_crs (rotation by k: index k;
+conjugation: -2). At PN15QP880 each CRS is 117 MB of int64.
 """
 
 from __future__ import annotations
@@ -154,6 +155,17 @@ def build_parameters(logn: int, q_moduli, p_moduli, gamma: int,
         gamma=gamma, sigma=sigma, crs_seed=crs_seed, device=device,
         ring_q=ring_q, ring_p=ring_p, ring_qp=ring_qp, crs=crs,
         pmodq_mont=pmodq)
+
+
+def add_crs(params: Parameters, idx: int) -> Parameters:
+    """Parameters extended with the CRS at idx (params.AddCRS,
+    mkrlwe/params.go:77-99); the same object if it is there already."""
+    if idx in params.crs:
+        return params
+    crs = dict(params.crs)
+    crs[idx] = gen_crs(params.ring_qp, params.beta(params.max_level),
+                       params.crs_seed, idx)
+    return dataclasses.replace(params, crs=crs)
 
 
 def new_parameters(logn: int, q_moduli, p_moduli, gamma: int,

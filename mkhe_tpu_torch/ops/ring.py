@@ -20,6 +20,10 @@ their Shoup companions, and the tail maps as int8 digit planes) equal the
 JAX package's of the same names (mkhe_tpu/ops/ring.py:77-212). They are
 built only when the split is first used, from a cache keyed on
 (moduli, logn, device), so rings made by take / concat get them too.
+
+The automorphisms X -> X^gal (permute_coeffs, permute_ntt) are gathers
+along the last axis. Their index tables are built with numpy once per
+(logN, gal) and copied once per device.
 """
 
 from __future__ import annotations
@@ -326,6 +330,75 @@ class Ring:
                                         t.untwist_sh)
         return ntt_cuda.intt(a, self.q, self.bar, self.ipsi, self.ipsi_sh,
                              self.ninv, self.ninv_sh)
+
+    # -- automorphisms ------------------------------------------------------
+
+    def permute_coeffs(self, a, gal: int):
+        """Apply X -> X^gal to coefficient-domain polys (..., L, N)."""
+        src, sign = coeff_perm(self.logn, gal, self.device)
+        g = a.index_select(-1, src)
+        return torch.where(sign, self.neg(g), g)
+
+    def permute_ntt(self, a, gal: int):
+        """Apply X -> X^gal to NTT-domain polys (pure gather, no signs)."""
+        return a.index_select(-1, ntt_perm(self.logn, gal, self.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _coeff_perm_host(logn: int, gal: int):
+    """Coefficient-domain Galois map X -> X^gal (odd gal): (src, sign)
+    with out[j] = (-1)^sign[j] * in[src[j]], int32 and uint32 arrays equal
+    to mkhe_tpu.ops.ring._coeff_perm_host's (the sign fold of the
+    reference's Rotate, mkrlwe/keyswitch.go:266-296)."""
+    n = 1 << logn
+    i = np.arange(n, dtype=np.int64)
+    raw = i * gal
+    j = raw & (n - 1)
+    src = np.empty(n, np.int32)
+    sign = np.empty(n, np.uint32)
+    src[j] = i
+    sign[j] = (raw >> logn) & 1
+    return src, sign
+
+
+@functools.lru_cache(maxsize=None)
+def _ntt_perm_host(logn: int, gal: int) -> np.ndarray:
+    """NTT-domain (bit-reversed order) permutation for X -> X^gal (odd
+    gal): out[j] = in[pi[j]], int32, equal to
+    mkhe_tpu.ops.ring._ntt_perm_host's (lattigo's PermuteNTTIndex). Slot j
+    holds the evaluation at psi^e, e = 2 brv(j) + 1; X^gal moves it to
+    the slot of e * gal mod 2N."""
+    n = 1 << logn
+    e = 2 * _brv_vec(logn) + 1
+    slot_of = np.empty(2 * n, np.int64)
+    slot_of[e] = np.arange(n)
+    return slot_of[(e * gal) % (2 * n)].astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def coeff_perm(logn: int, gal: int, device: torch.device):
+    """_coeff_perm_host as (src int64, sign bool) tensors on the device."""
+    src, sign = _coeff_perm_host(logn, gal)
+    return (torch.from_numpy(src.astype(np.int64)).to(device),
+            torch.from_numpy(sign.astype(bool)).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def ntt_perm(logn: int, gal: int, device: torch.device) -> torch.Tensor:
+    """_ntt_perm_host as an int64 index tensor on the device."""
+    return torch.from_numpy(_ntt_perm_host(logn, gal).astype(np.int64)
+                            ).to(device)
+
+
+def galois_element_rot(k: int, n: int) -> int:
+    """Galois element of a rotation of the CKKS slots by k (generator 5),
+    lattigo's GaloisElementForColumnRotationBy."""
+    return pow(5, k, 2 * n)
+
+
+def galois_element_conj(n: int) -> int:
+    """Galois element of conjugation (row rotation): 2N - 1."""
+    return 2 * n - 1
 
 
 @functools.lru_cache(maxsize=None)

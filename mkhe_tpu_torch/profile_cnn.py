@@ -1,0 +1,289 @@
+"""Where the time of one two-party encrypted CNN inference goes.
+
+    python -m mkhe_tpu_torch.profile_cnn [--trace PATH]
+
+Builds the PN14QP433_CNN CRS and the keys of both parties (dataOwner,
+modelOwner) from a seed on the first CUDA device, encrypts the model's
+weights under modelOwner and one synthetic 28x28 image under dataOwner
+(models/cnn.py, REF layout), checks the first inference's logits against
+plain_forward, then prints, per warm inference of the staged pipeline
+(cnn._pipeline):
+
+  latency   median ms from CUDA events, and from the host clock with a
+            synchronize;
+  launches  NTT kernel launches (ops/ntt_cuda counters) and key-switched
+            rotations (count_rotations), mean over REPS inferences;
+  ops       over the same inferences, the calls and the ms of each
+            evaluator op the pipeline makes (op_profile: CUDA events in
+            stream order, so an op's time includes the device's waits for
+            the host inside it);
+  trace     torch.profiler over two inferences (profile_mult.trace):
+            kernel time, kernel count and the device idle share of the
+            traced window, which the tracer's host cost inflates; beside
+            it an estimate of the untraced idle share, 1 - (traced kernel
+            ms) / (untraced CUDA-event ms), from the two runs.
+
+`setup`, `infer`, `op_profile` and `count_rotations` take any parameters,
+layout and device, so the same code runs at the MINI layout on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from . import mkckks, mkrlwe
+from .mkrlwe import keyswitch as ksw
+from .models import cnn
+from .ops import ntt_cuda
+from .profile_mult import host_ms, median_ms, trace
+
+SEED = 2024
+REPS = 5
+USERS = ("dataOwner", "modelOwner")
+# the evaluator ops cnn._pipeline calls; an op called inside another one
+# (mul_relin_new's hoistings) counts as its caller's time
+OPS = ("hoisted_form", "rotate_new", "rotate_hoisted_many_new",
+       "mul_relin_sum_new", "mul_relin_hoisted_new", "mul_relin_new",
+       "mul_ptxt_new", "add_new")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@dataclasses.dataclass
+class Setup:
+    params: mkckks.Parameters     # with the CRS the inference needs
+    layout: cnn.Layout
+    weights: tuple                # (kernels, fc1, fc2, b1, b2)
+    ev: mkckks.Evaluator
+    enc: mkckks.Encryptor
+    dec: mkckks.Decryptor
+    sks: mkrlwe.SecretKeySet
+    pks: dict
+    rlk: mkrlwe.RelinearizationKeySet
+    rtk: mkrlwe.RotationKeySet
+    cjk: mkrlwe.ConjugationKeySet
+    model: tuple                  # ct_k, ct_fc1, ct_fc2, ct_b1, ct_b2
+    pt_mask: torch.Tensor
+    keygen_s: float               # CRS and keys
+    model_s: float                # model encryption, key stacks, tables
+
+    def encrypt(self, v, uid: str = "modelOwner") -> mkckks.Ciphertext:
+        return self.enc.encrypt_msg(mkckks.Message(value=v), self.pks[uid])
+
+    def encrypt_image(self, img: np.ndarray) -> mkckks.Ciphertext:
+        return self.encrypt(
+            cnn.pack_image(img, self.params.slots, self.layout), "dataOwner")
+
+    def logits(self, out: mkckks.Ciphertext) -> np.ndarray:
+        return np.real(
+            self.dec.decrypt(out, self.sks).value[:self.layout.classes])
+
+
+def setup(params, layout: cnn.Layout = cnn.REF, weights=None,
+          seed: int = SEED) -> Setup:
+    """The CRS of layout.extra_rots, of the powers of two below N/2 and
+    of conjugation; both parties' key pairs, relinearization, rotation
+    and conjugation keys from seed; the model (load_weights() unless
+    weights are given) encrypted under modelOwner from seed + 1; the fc2
+    mask plaintext on the device; and the stacked rotation keys and Galois
+    tables of every index, so that no inference builds them."""
+    weights = cnn.load_weights() if weights is None else weights
+    dev = params.rlwe.device
+    rots = list(layout.extra_rots) + [1 << i for i in range(params.logn - 1)]
+    t0 = time.perf_counter()
+    for idx in rots + [-2]:
+        params = params.add_crs(idx)
+    kgen = mkrlwe.KeyGenerator(params.rlwe, seed=seed)
+    sks, pks = mkrlwe.SecretKeySet(), {}
+    rlk, rtk = mkrlwe.RelinearizationKeySet(), mkrlwe.RotationKeySet()
+    cjk = mkrlwe.ConjugationKeySet()
+    for uid in USERS:
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        sks.add(sk)
+        rlk.add(kgen.gen_relinearization_key(sk, kgen.gen_secret_key(uid)))
+        for r in rots:
+            rtk.add(kgen.gen_rotation_key(r, sk))
+        cjk.add(kgen.gen_conjugation_key(sk))
+    _sync(dev)
+    keygen_s = time.perf_counter() - t0
+    s = Setup(params=params, layout=layout, weights=weights,
+              ev=mkckks.Evaluator(params),
+              enc=mkckks.Encryptor(params, seed=seed + 1),
+              dec=mkckks.Decryptor(params), sks=sks, pks=pks, rlk=rlk,
+              rtk=rtk, cjk=cjk, model=(), pt_mask=None, keygen_s=keygen_s,
+              model_s=0.0)
+    t0 = time.perf_counter()
+    kernels, fc1, fc2, b1, b2 = weights
+    slots = params.slots
+    s.model = ([s.encrypt(v) for v in cnn.pack_kernels(kernels, slots,
+                                                        layout)],
+               [s.encrypt(v) for v in cnn.pack_fc1(fc1, slots, layout)],
+               s.encrypt(cnn.pack_fc2(fc2, slots, layout)),
+               s.encrypt(cnn.pack_b1(b1, slots, layout)),
+               s.encrypt(cnn.pack_b2(b2, slots, layout)))
+    s.pt_mask = torch.from_numpy(s.enc.encode_msg(mkckks.Message(
+        value=cnn.mask_vector(slots, layout))).astype(np.int64)).to(dev)
+    for r in rots:
+        rtk.stacked(USERS, r)
+        ksw.rotation_tables(params.rlwe, r)
+    _sync(dev)
+    s.model_s = time.perf_counter() - t0
+    return s
+
+
+def image(layout: cnn.Layout, seed: int) -> np.ndarray:
+    """A synthetic image, uniform in [0, 1)."""
+    return np.random.default_rng(seed).uniform(0, 1, (layout.image,
+                                                      layout.image))
+
+
+def infer(s: Setup, ct_img, marks=None) -> mkckks.Ciphertext:
+    """One inference through the staged pipeline."""
+    return cnn._pipeline(s.ev, s.rlk, s.rtk, ct_img, *s.model, s.pt_mask,
+                         s.params.scale, s.layout, marks=marks)
+
+
+@contextlib.contextmanager
+def count_rotations():
+    """Counts the key-switched rotations made while the block runs: one
+    per keyswitch.rotate call, one per index of each
+    keyswitch.rotate_hoisted_batched call. Yields a dict whose
+    "rotations" entry holds the count."""
+    count = {"rotations": 0}
+    rotate, batched = ksw.rotate, ksw.rotate_hoisted_batched
+
+    def counted_rotate(*args, **kwargs):
+        count["rotations"] += 1
+        return rotate(*args, **kwargs)
+
+    def counted_batched(params, ct, rot_idxs, *args, **kwargs):
+        count["rotations"] += len(rot_idxs)
+        return batched(params, ct, rot_idxs, *args, **kwargs)
+
+    ksw.rotate, ksw.rotate_hoisted_batched = counted_rotate, counted_batched
+    try:
+        yield count
+    finally:
+        ksw.rotate, ksw.rotate_hoisted_batched = rotate, batched
+
+
+@contextlib.contextmanager
+def op_profile(ev: mkckks.Evaluator):
+    """Counts and times ev's OPS while the block runs, and counts the
+    key-switched rotations. Yields a dict that, once the block has ended,
+    maps each op to (calls, ms) and "rotations" to the rotation count.
+    Times are CUDA events in stream order on a CUDA device, the host
+    clock otherwise."""
+    cuda = ev.params.rlwe.device.type == "cuda"
+    spans, depth = [], [0]
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        evt = torch.cuda.Event(enable_timing=True)
+        evt.record()
+        return evt
+
+    def wrap(name, fn):
+        def op(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            try:
+                start = mark()
+                out = fn(*args, **kwargs)
+                spans.append((name, start, mark()))
+            finally:
+                depth[0] -= 1
+            return out
+        return op
+
+    stats = {}
+    for name in OPS:
+        setattr(ev, name, wrap(name, getattr(ev, name)))
+    try:
+        with count_rotations() as rot:
+            yield stats
+    finally:
+        for name in OPS:
+            delattr(ev, name)
+    _sync(ev.params.rlwe.device)
+    for name in OPS:
+        ms = [(b.elapsed_time(e) if cuda else (e - b) * 1e3)
+              for n, b, e in spans if n == name]
+        stats[name] = (len(ms), sum(ms))
+    stats["rotations"] = rot["rotations"]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--trace", default=None,
+                    help="write a Chrome trace of the traced inferences here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
+                           "False")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip(), flush=True)
+    s = setup(mkckks.PN14QP433_CNN("cuda"))
+    lo, dev = s.layout, s.params.rlwe.device
+    img = image(lo, SEED)
+    ct_img = s.encrypt_image(img)
+    t0 = time.perf_counter()
+    out = infer(s, ct_img)
+    _sync(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.max(np.abs(s.logits(out)
+                              - cnn.plain_forward(img, *s.weights, lo))))
+    if not err <= 5e-3:
+        raise AssertionError(f"logits differ from plain_forward by {err}")
+    ms = median_ms(lambda: infer(s, ct_img), REPS, dev)
+    ms_host = host_ms(lambda: infer(s, ct_img), REPS, dev)
+    print(f"PN14QP433_CNN, REF layout, 2 parties, torch {torch.__version__}:"
+          f" keygen {s.keygen_s:.2f} s, model encryption and key stacks "
+          f"{s.model_s:.2f} s; first inference {first_ms:.3f} ms (host "
+          f"clock), max logit err {err:.3g}; warm {ms:.3f} ms (CUDA events, "
+          f"median of {REPS}), {ms_host:.3f} ms (host clock + synchronize)",
+          flush=True)
+    ntt_cuda.reset_counters()
+    with op_profile(s.ev) as ops:
+        for _ in range(REPS):
+            infer(s, ct_img)
+    launches = ntt_cuda.counters()
+    print(f"per inference, mean of {REPS}: NTT launches fwd "
+          f"{launches['ntt_fwd'] / REPS:g} inv {launches['ntt_inv'] / REPS:g}"
+          f", {ops['rotations'] / REPS:g} key-switched rotations; ops (CUDA "
+          f"events in stream order) {sum(ops[n][1] for n in OPS) / REPS:.3f}"
+          " ms in all", flush=True)
+    for name in OPS:
+        calls, op_ms = ops[name]
+        print(f"  op {name}: {calls / REPS:g} calls, {op_ms / REPS:.3f} ms",
+              flush=True)
+    tr = trace(lambda: infer(s, ct_img), 2, dev, args.trace)
+    print(f"traced {tr['calls']} inferences, per inference: wall "
+          f"{tr['wall_ms_per_call']:.3f} ms, kernel time "
+          f"{tr['kernel_ms_per_call']:.3f} ms, {tr['kernels_per_call']:.1f} "
+          f"kernels, device idle share of the traced window "
+          f"{tr['device_idle_share']:.4f}; untraced idle share estimated "
+          f"from two runs {1 - tr['kernel_ms_per_call'] / ms:.4f}",
+          flush=True)
+    for kind in ("ops", "kernels"):
+        for key, op_ms, count in tr["top_" + kind]:
+            print(f"  {kind[:-1]} {key}: {op_ms:.3f} ms in {count:.1f} calls "
+                  "per inference", flush=True)
+
+
+if __name__ == "__main__":
+    main()

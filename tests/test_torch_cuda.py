@@ -1,8 +1,9 @@
 """The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, and the split NTT's
 head, tail and tailed inverse in csrc/ntt_tail.cu) against their plain
-PyTorch versions on the card, bit for bit. Needs an NVIDIA GPU and nvcc;
-without a card every test skips. This file imports no JAX, so it also runs
-on a machine without it:
+PyTorch versions on the card, bit for bit; and rotation, conjugation and
+the CNN pipeline on the card against the same calls on the CPU. Needs an
+NVIDIA GPU and nvcc; without a card every test skips. This file imports
+no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q -o addopts="" --noconftest
 """
@@ -133,3 +134,150 @@ def test_split_routing_and_counters(gen):
     assert ntt_cuda.counters() == {"ntt_fwd": 0, "ntt_inv": 0,
                                    "ntt_fwd_head": 1, "ntt_tail": 2,
                                    "ntt_inv_tailed": 1}
+
+
+# ----------------------------------------------------------------------------
+# Rotation, conjugation and the CNN pipeline: the card against the CPU
+# ----------------------------------------------------------------------------
+
+def _carry(params, device):
+    """mkckks Parameters with params' moduli and CRS on another device."""
+    from mkhe_tpu_torch import convert
+    rp = params.rlwe
+    return convert.ckks_parameters(
+        convert.rlwe_parameters(rp.logn, rp.q_moduli, rp.p_moduli, rp.gamma,
+                                rp.sigma, {i: a.numpy()
+                                           for i, a in rp.crs.items()},
+                                rp.crs_seed, device),
+        params.logslots, params.scale)
+
+
+def _keys(params, rots, conj, seed):
+    """Two parties' keys on the CPU from torch.Generators, and copies of
+    the evaluation keys for the card."""
+    from mkhe_tpu_torch import convert, mkrlwe
+    kgen = mkrlwe.KeyGenerator(params.rlwe, seed=seed)
+    sks, pks = mkrlwe.SecretKeySet(), {}
+    rlk, rtk = mkrlwe.RelinearizationKeySet(), mkrlwe.RotationKeySet()
+    cjk = mkrlwe.ConjugationKeySet()
+    for uid in ("dataOwner", "modelOwner"):
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        sks.add(sk)
+        rlk.add(kgen.gen_relinearization_key(sk, kgen.gen_secret_key(uid)))
+        for r in rots:
+            rtk.add(kgen.gen_rotation_key(r, sk))
+        if conj:
+            cjk.add(kgen.gen_conjugation_key(sk))
+    cuda = dict(
+        rlk=convert.relinearization_key_set(
+            {u: (k.b.numpy(), k.d.numpy(), k.v.numpy())
+             for u, k in rlk.value.items()}, "cuda"),
+        rtk=convert.rotation_key_set(
+            {(u, r): k.data.numpy() for u, by in rtk.value.items()
+             for r, k in by.items()}, "cuda"),
+        cjk=convert.conjugation_key_set(
+            {u: k.data.numpy() for u, k in cjk.value.items()}, "cuda"))
+    return dict(sks=sks, pks=pks, rlk=rlk, rtk=rtk, cjk=cjk, cuda=cuda)
+
+
+def _on(ct, device):
+    from mkhe_tpu_torch import mkckks, mkrlwe
+    return mkckks.Ciphertext(ct=mkrlwe.Ciphertext(
+        ids=ct.ids, data=ct.ct.data.to(device)), scale=ct.scale)
+
+
+def _same_ct(got, want):
+    assert got.ids == want.ids and got.scale == want.scale
+    assert torch.equal(got.ct.data.cpu(), want.ct.data)
+
+
+def test_rotation_and_conjugation_logn14_match_cpu(gen):
+    """At PN14QP433_CNN (logN 14, 14 + 4 limbs, alpha 2), 2 parties:
+    rotate_new (one index with its CRS, one by the power-of-two
+    fallback), a hoisted rotation one level down, a batched hoisted
+    rotation and a conjugation on the card equal the same calls on the
+    CPU."""
+    import numpy as np
+    from mkhe_tpu_torch import mkckks
+    cpu = mkckks.PN14QP433_CNN("cpu")
+    rots = (1, 4, 384, 8191)
+    for idx in rots + (-2,):
+        cpu = cpu.add_crs(idx)
+    keys = _keys(cpu, rots, True, seed=81)
+    enc = mkckks.Encryptor(cpu, seed=82)
+    rng = np.random.default_rng(83)
+    ct = None
+    for uid in ("dataOwner", "modelOwner"):
+        c = enc.encrypt_msg(mkckks.Message(
+            value=rng.uniform(-1, 1, cpu.slots)), keys["pks"][uid])
+        ct = c if ct is None else mkckks.Evaluator(cpu).add_new(ct, c)
+    gpu = _carry(cpu, "cuda")
+    ev_c, ev_g = mkckks.Evaluator(cpu), mkckks.Evaluator(gpu)
+    ct_g = _on(ct, "cuda")
+    for r in (384, 5, -1):
+        _same_ct(ev_g.rotate_new(ct_g, r, keys["cuda"]["rtk"]),
+                 ev_c.rotate_new(ct, r, keys["rtk"]))
+    h_c, h_g = ev_c.hoisted_form(ct), ev_g.hoisted_form(ct_g)
+    low_c, low_g = ev_c.drop_level(ct, 3), ev_g.drop_level(ct_g, 3)
+    _same_ct(ev_g.rotate_hoisted_new(low_g, 4, h_g, keys["cuda"]["rtk"]),
+             ev_c.rotate_hoisted_new(low_c, 4, h_c, keys["rtk"]))
+    many_g = ev_g.rotate_hoisted_many_new(ct_g, rots, h_g,
+                                          keys["cuda"]["rtk"])
+    for got, want in zip(many_g, ev_c.rotate_hoisted_many_new(
+            ct, rots, h_c, keys["rtk"])):
+        _same_ct(got, want)
+    _same_ct(ev_g.conjugate_new(low_g, keys["cuda"]["cjk"]),
+             ev_c.conjugate_new(low_c, keys["cjk"]))
+    torch.cuda.synchronize()
+
+
+def test_cnn_mini_pipeline_matches_cpu(gen):
+    """The staged CNN pipeline at MINI (logN 11) on the card gives the
+    CPU's ciphertext bit for bit, and its logits are within 5e-3 of
+    plain_forward."""
+    import numpy as np
+    from mkhe_tpu_torch import mkckks
+    from mkhe_tpu_torch.models import cnn
+    lo = cnn.MINI
+    cpu = mkckks.new_parameters(11, 10, q0_bits=28.9, level_bits=20.0,
+                                levels=7, scale=2.0 ** 40, p_bits=28.4,
+                                device="cpu")
+    rots = list(lo.extra_rots) + [1 << i for i in range(cpu.logn - 1)]
+    for r in rots:
+        cpu = cpu.add_crs(r)
+    keys = _keys(cpu, rots, False, seed=84)
+    enc = mkckks.Encryptor(cpu, seed=85)
+    r = np.random.default_rng(86)
+    kernels = r.uniform(-1, 1, (lo.num_kernels, lo.ksize, lo.ksize)) / 16
+    n_in = lo.num_kernels * lo.conv_out ** 2
+    fc1 = r.uniform(-1, 1, (n_in, lo.fc_units)) / n_in
+    fc2 = r.uniform(-1, 1, (lo.fc_units, lo.classes)) / lo.fc_units
+    b1 = r.uniform(-0.5, 0.5, lo.fc_units)
+    b2 = r.uniform(-0.5, 0.5, lo.classes)
+    img = r.uniform(0, 1, (lo.image, lo.image))
+    s = cpu.slots
+
+    def e(v, uid="modelOwner"):
+        return enc.encrypt_msg(mkckks.Message(value=v), keys["pks"][uid])
+
+    args = [e(cnn.pack_image(img, s, lo), "dataOwner"),
+            [e(v) for v in cnn.pack_kernels(kernels, s, lo)],
+            [e(v) for v in cnn.pack_fc1(fc1, s, lo)],
+            e(cnn.pack_fc2(fc2, s, lo)), e(cnn.pack_b1(b1, s, lo)),
+            e(cnn.pack_b2(b2, s, lo))]
+    pt_mask = torch.from_numpy(enc.encode_msg(mkckks.Message(
+        value=cnn.mask_vector(s, lo))).astype(np.int64))
+    want = cnn._pipeline(mkckks.Evaluator(cpu), keys["rlk"], keys["rtk"],
+                         *args, pt_mask, cpu.scale, lo)
+    gpu = _carry(cpu, "cuda")
+    args_g = [[_on(c, "cuda") for c in a] if isinstance(a, list)
+              else _on(a, "cuda") for a in args]
+    got = cnn._pipeline(mkckks.Evaluator(gpu), keys["cuda"]["rlk"],
+                        keys["cuda"]["rtk"], *args_g, pt_mask.cuda(),
+                        gpu.scale, lo)
+    _same_ct(got, want)
+    logits = np.real(mkckks.Decryptor(cpu).decrypt(
+        want, keys["sks"]).value[:lo.classes])
+    np.testing.assert_allclose(
+        logits, cnn.plain_forward(img, kernels, fc1, fc2, b1, b2, lo),
+        rtol=5e-3, atol=5e-3)

@@ -197,12 +197,15 @@ def test_add_sub_union_and_levels_bit_identical(jctx, carried):
 
 
 def test_unequal_scales_raise(jctx, carried):
-    """Scale alignment needs mult_by_const_new, which is not ported."""
+    """add_new aligns unequal scales (mult_by_const_new, checked against
+    the JAX package in tests/test_torch_rotation.py), but the terms of a
+    lazily relinearized inner product must share their product scale."""
     tev = tckks.Evaluator(jctx["tparams"])
-    ct = _to_port(carried["cts"][0])
-    doubled = tckks.Ciphertext(ct=ct.ct, scale=ct.scale * 4)
-    with pytest.raises(NotImplementedError, match="mult_by_const"):
-        tev.add_new(ct, doubled)
+    a, b = _to_port(carried["cts"][0]), _to_port(carried["cts"][1])
+    doubled = tckks.Ciphertext(ct=b.ct, scale=b.scale * 4)
+    assert tev.add_new(a, doubled).scale == doubled.scale
+    with pytest.raises(ValueError, match="product scale"):
+        tev.mul_relin_sum_new([(a, b), (a, doubled)], carried["t_rlk"])
 
 
 def test_partial_decryptions_fold_to_the_full_decryption(jctx, carried):
@@ -286,7 +289,8 @@ def test_port_imports_no_jax():
     """Neither JAX nor any module of the JAX package mkhe_tpu loads."""
     code = ("import json, sys\n"
             "import mkhe_tpu_torch, mkhe_tpu_torch.mkckks, "
-            "mkhe_tpu_torch.mkbfv, mkhe_tpu_torch.convert\n"
+            "mkhe_tpu_torch.mkbfv, mkhe_tpu_torch.convert, "
+            "mkhe_tpu_torch.models, mkhe_tpu_torch.profile_cnn\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'mkhe_tpu'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
