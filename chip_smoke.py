@@ -8,14 +8,20 @@ Phases, one line each, then two JSON lines:
               "name, power.limit" line;
   2. build    nvcc builds csrc/ntt.cu and csrc/ntt_tail.cu (sm_90a) from
               the checkout, one compiler per source, started together;
+              ptxas's spills and registers per kernel;
   3. kernels  each of the five NTT kernels against its plain PyTorch
               version on the card, bit for bit, at the PN15QP880 QP moduli
               (32 limbs, N = 2^15, batch 8) and again at logN = 10, with
               any-u32 and < 8q inputs; ntt_fwd and ntt_inv also at the
-              CNN's PN14QP433_CNN QP moduli (18 limbs, N = 2^14, batch 8);
-              head + tail against the full forward kernel and tail +
-              tailed inverse against the full inverse kernel; round trips;
-              median times from CUDA events;
+              CNN's PN14QP433_CNN QP moduli (18 limbs, N = 2^14, batch 8)
+              and at the 4-party mult's digit launch (4 x 14 digits x 32
+              QP limbs x 2^15); head + tail against the full forward
+              kernel and tail + tailed inverse against the full inverse
+              kernel; round trips; median times from CUDA events of single
+              launches (`ms`, as in the earlier smoke runs) and of the mean
+              of 10 back-to-back launches (`ms_mean10`, without the host's
+              launch time), each beside its bound
+              (profile_ntt.kernel_bound) and share of it;
   4. mult     the CKKS main path: PN15QP880, 4 parties, keys from
               torch.Generator on the card; three requests of fresh
               encryptions -> Evaluator.mul_relin_new (mult + relin +
@@ -46,8 +52,9 @@ Phases, one line each, then two JSON lines:
               the conjugate; the NTT launch counters must grow; the
               key-switched rotations of the requests are counted
               (profile_cnn.count_rotations).
-Then {"kernels": [...]} (launches summed over phases 4-6) and, last,
-{"ok": true, "device": {...}}.
+Then {"kernels": [...]} (launches summed over phases 4-6; times, bounds
+and plain times, all single launches, and ms_mean10 of phase 3 at logN
+15) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
 fails in phase 1.
@@ -64,10 +71,12 @@ import time
 import numpy as np
 import torch
 
-from mkhe_tpu_torch import config, mkbfv, mkckks, mkrlwe, profile_cnn
+from mkhe_tpu_torch import (config, mkbfv, mkckks, mkrlwe, profile_cnn,
+                            profile_ntt)
 from mkhe_tpu_torch.models import cnn
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
+from mkhe_tpu_torch.profile_ntt import cuda_ms
 
 BATCH = 8
 SEED = 2024
@@ -81,22 +90,6 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_tail", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:266"),
     ("ntt_inv_tailed", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:175"),
 )
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() over reps runs, from CUDA events,
-    after one warm-up run."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def phase_device() -> dict:
@@ -121,8 +114,11 @@ def phase_build() -> None:
     log = ntt_cuda.build()
     ntt_cuda.load()
     secs = time.perf_counter() - t0
-    ptxas = [ln.split("ptxas info    :")[-1].strip()
-             for ln in log.splitlines() if "registers" in ln]
+    # per kernel: its name, then its spills, then its registers
+    ptxas = [ln.split("'")[1][-45:] if "Compiling entry" in ln
+             else ln.split("ptxas info    :")[-1].strip()
+             for ln in log.splitlines()
+             if "Compiling entry" in ln or "spill" in ln or "registers" in ln]
     print(f"[2 build] {secs:.2f} s -> {ntt_cuda.LIB_PATH.name}; "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
 
@@ -139,30 +135,41 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
     compositions against the full kernels, at the CKKS and BFV paths'
     logN 15 QP moduli and at logN 10; ntt_fwd / ntt_inv also at the CNN
     path's shape (logN 14, its 18 QP moduli), the only kernels that path
-    runs. Returns per-kernel max_abs_err and the times at logN 15 (batch
-    8 of the 32 QP limbs)."""
+    runs, and at the 4-party mult's digit launch (4 x 14 digits x 32 QP
+    limbs x 2^15). Returns per-kernel max_abs_err, the times at logN 15
+    (batch 8 of the 32 QP limbs) and their bounds."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     err = {name: 0 for name, _, _ in KERNELS}
     mism = comp_mism = 0
-    times, times14 = {}, {}
+    times = {"15": {}, "14": {}, "digits": {}}
     ring10 = Ring.create(ring15.moduli, 10)
-    for ring in (ring15, ring14, ring10):
-        split = ring is not ring14
-        shape = (BATCH, ring.nlimbs, ring.n)
+    for ring in (ring15, ring14, ring10, "digits"):
+        digits = ring == "digits"
+        ring = ring15 if digits else ring
+        split = ring is not ring14 and not digits
+        shape = ((4, 14) if digits else (BATCH,)) + (ring.nlimbs, ring.n)
         q = ring.q[:, None]
-        fwd_t = (ring.q, ring.bar, ring.psi, ring.psi_sh)
-        inv_t = (ring.q, ring.bar, ring.ipsi, ring.ipsi_sh, ring.ninv,
+        fwd_p = (ring.q, ring.bar, ring.psi, ring.psi_sh)
+        inv_p = (ring.q, ring.bar, ring.ipsi, ring.ipsi_sh, ring.ninv,
                  ring.ninv_sh)
+        fwd_t, inv_t = fwd_p + (ring.psi_pack,), inv_p + (ring.ipsi_pack,)
+        # what the full kernels read, for their bounds
+        reads = {"ntt_fwd": (ring.q, ring.bar, ring.psi_pack),
+                 "ntt_inv": (ring.q, ring.bar, ring.ninv, ring.ninv_sh,
+                             ring.ipsi_pack)}
         canon = _rand(gen, shape, q)
         any32 = _rand(gen, shape, 1 << 32)
         lazy = _rand(gen, shape, 8 * q)
         K = ntt_cuda
+        # name, kernel, its tables, plain version, its tables, input
         cases = (
-            ("ntt_fwd", K.ntt, K.ntt_plain, fwd_t, canon),
-            ("ntt_fwd", K.ntt, K.ntt_plain, fwd_t, any32),
-            ("ntt_inv", K.intt, K.intt_plain, inv_t, lazy),
+            ("ntt_fwd", K.ntt, fwd_t, K.ntt_plain, fwd_p, any32),
+            ("ntt_inv", K.intt, inv_t, K.intt_plain, inv_p, lazy),
         )
+        if not digits:
+            cases = (("ntt_fwd", K.ntt, fwd_t, K.ntt_plain, fwd_p, canon),
+                     ) + cases
         # round trip
         pairs = [(K.intt(K.ntt(canon, *fwd_t), *inv_t), canon)]
         if split:
@@ -173,12 +180,12 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
             itail_t = (ring.q, ring.bar, st.iwpack, st.iwpack_sh,
                        st.untwist, st.untwist_sh)
             cases += (
-                ("ntt_fwd_head", K.ntt_head, K.ntt_head_plain, head_t,
-                 any32),
-                ("ntt_tail", K.tail, K.tail_plain, tfwd_t, any32),
-                ("ntt_tail", K.tail, K.tail_plain, tinv_t, lazy),
-                ("ntt_inv_tailed", K.intt_tailed, K.intt_tailed_plain,
-                 itail_t, any32),
+                ("ntt_fwd_head", K.ntt_head, head_t, K.ntt_head_plain,
+                 head_t, any32),
+                ("ntt_tail", K.tail, tfwd_t, K.tail_plain, tfwd_t, any32),
+                ("ntt_tail", K.tail, tinv_t, K.tail_plain, tinv_t, lazy),
+                ("ntt_inv_tailed", K.intt_tailed, itail_t,
+                 K.intt_tailed_plain, itail_t, any32),
             )
             # the split's compositions against the full kernels
             split_fwd = K.tail(K.ntt_head(any32, *head_t), *tfwd_t)
@@ -187,40 +194,51 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
                        K.intt(lazy, *inv_t)),
                       (K.intt_tailed(K.tail(split_fwd, *tinv_t), *itail_t),
                        ring.reduce(any32))]
-        for name, kern, plain, tabs, x in cases:
-            got, want = kern(x, *tabs), plain(x, *tabs)
+        for name, kern, ktabs, plain, ptabs, x in cases:
+            got, want = kern(x, *ktabs), plain(x, *ptabs)
             torch.cuda.synchronize()
             mism += int((got != want).sum())
             err[name] = max(err[name], int((got - want).abs().max()))
+            del got, want
         for got, want in pairs:
             torch.cuda.synchronize()
             comp_mism += int((got != want).sum())
         if ring is ring10:
             continue
-        out = times if ring is ring15 else times14
-        for name, kern, plain, tabs, x in cases[1:]:
-            if name in out:
+        out = times["digits" if digits else "15" if ring is ring15 else "14"]
+        for name, kern, ktabs, plain, ptabs, x in cases:
+            if name in out or (name == "ntt_fwd" and x is canon):
                 continue
-            out[name] = cuda_ms(lambda: kern(x, *tabs), 20)
-            out[name + "_plain"] = cuda_ms(lambda: plain(x, *tabs), 5)
+            b_ms, b_by = profile_ntt.kernel_bound(name, x,
+                                                  reads.get(name, ktabs))
+            out[name] = dict(ms=cuda_ms(lambda: kern(x, *ktabs), 20, 1),
+                             ms_mean10=cuda_ms(lambda: kern(x, *ktabs), 20),
+                             bound_ms=b_ms, bound_by=b_by)
+            if not digits:
+                out[name]["plain_ms"] = cuda_ms(lambda: plain(x, *ptabs), 5,
+                                                1)
+
+    def show(t):
+        return ", ".join(
+            f"{name} {r['ms']:.4f}, mean of 10 {r['ms_mean10']:.4f} (bound "
+            f"{r['bound_ms']:.4f}, {r['bound_ms'] / r['ms']:.1%} of it"
+            + (f"; plain {r['plain_ms']:.4f}" if "plain_ms" in r else "")
+            + ")" for name, r in t.items())
+
     print(f"[3 kernels] mismatches {mism} kernel vs plain (5 kernels at "
-          f"logN 15 and 10, ntt_fwd / ntt_inv also at logN 14; canonical, "
-          f"any-u32 and <8q inputs), {comp_mism} head+tail vs ntt_fwd, "
-          f"tail+inv_tailed vs ntt_inv and round trips; logN 15 batch "
-          f"{BATCH} x {ring15.nlimbs} limbs median ms: " + ", ".join(
-              f"{name} {times[name]:.4f} (plain {times[name + '_plain']:.4f})"
-              for name, _, _ in KERNELS)
-          + f"; logN 14 batch {BATCH} x {ring14.nlimbs} limbs (the CNN's "
-          "QP) median ms: " + ", ".join(
-              f"{name} {times14[name]:.4f} "
-              f"(plain {times14[name + '_plain']:.4f})" for name in times14
-              if not name.endswith("_plain")), flush=True)
+          f"logN 15 and 10, ntt_fwd / ntt_inv also at logN 14 and the "
+          f"digit launch; canonical, any-u32 and <8q inputs), {comp_mism} "
+          f"head+tail vs ntt_fwd, tail+inv_tailed vs ntt_inv and round "
+          f"trips; median ms at logN 15 batch {BATCH} x {ring15.nlimbs} "
+          f"limbs: {show(times['15'])}; logN 14 batch {BATCH} x "
+          f"{ring14.nlimbs} limbs (the CNN's QP): {show(times['14'])}; "
+          f"digit launch 4 x 14 x {ring15.nlimbs} x 2^15: "
+          f"{show(times['digits'])}", flush=True)
     if mism or comp_mism:
         raise AssertionError(f"kernels differ from their plain versions in "
                              f"{mism} values, from the full kernels and in "
                              f"round trips in {comp_mism}")
-    return {name: dict(max_abs_err=err[name], ms=times[name],
-                       plain_ms=times[name + "_plain"])
+    return {name: dict(max_abs_err=err[name], **times["15"][name])
             for name, _, _ in KERNELS}
 
 
@@ -482,7 +500,8 @@ def main() -> None:
     launches = {name: sum(p[name] for p in phases) for name, _, _ in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches[name], **stats[name]}
+         "replaces": replaces, "launches": launches[name], **stats[name],
+         "library_ms": None}
         for name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

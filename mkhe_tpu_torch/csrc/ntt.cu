@@ -1,187 +1,474 @@
 // Forward and inverse negacyclic NTT for Hopper (sm_90a).
 //
-// Replaces the TPU kernels mkhe_tpu/ops/ntt_pallas.py::_fwd_kernel and
-// ::_inv_kernel. Computes exactly what they compute, which is what the
-// JAX package's jnp path computes (mkhe_tpu/ops/ring.py:377-440):
-//   forward: merged-twist Cooley-Tukey with the psi / psi_sh tables,
-//            standard order in, bit-reversed order out;
-//   inverse: Gentleman-Sande with ipsi / ipsi_sh and a final multiply by
+// Replaces the TPU kernels mkhe_tpu/ops/ntt_pallas.py::_fwd_kernel (:126,
+// body _fwd_stages :47-123) and ::_inv_kernel (:138-225). Computes what
+// they compute, which is what the JAX package's jnp path computes
+// (mkhe_tpu/ops/ring.py:377-440):
+//   forward: merged-twist Cooley-Tukey with the psi table, standard order
+//            in, bit-reversed order out;
+//   inverse: Gentleman-Sande with the ipsi table and a final multiply by
 //            N^-1, bit-reversed order in, standard order out.
-// Both reduce their input first (Barrett), so the forward kernel takes any
-// u32 and the inverse kernel takes the lazy < 8q inputs of the key-switch
-// pipeline; outputs are canonical, equal bit for bit to the plain PyTorch
-// versions in ops/ntt_cuda.py. Twiddle products are Shoup multiplies with
-// an exact __umulhi quotient, so every intermediate stays canonical.
+// Both take any u32 input (so the inverse takes the lazy < 8q inputs of the
+// key-switch pipeline) and give canonical output, equal bit for bit to the
+// plain PyTorch versions in ops/ntt_cuda.py: the transform is fixed mod q
+// and a canonical residue is unique, so lazy intermediates cannot change it.
 //
 // Layout: data (n_polys, N) int64 holding u32 values, polynomial p on limb
-// p % L; tables (L, N) and constants (L,) int64. One thread block per
-// polynomial holds the whole polynomial in dynamic shared memory (N = 2^15
-// u32 is 128 KiB, so logN <= 15), with up to 1024 threads doing N/2 / 1024
-// butterflies each per stage and a __syncthreads() between stages.
-// Twiddles are read from global memory, where L2 keeps them.
+// p % L; the packed twiddle table (L, N) int64 holds w | w_shoup << 32
+// (ops/ring.py psi_pack / ipsi_pack); constants (L,) int64.
 //
-// What bounds it on an H100: integer multiplies (three 32-bit products per
-// butterfly) and shared-memory traffic (each of the logN stages reads and
-// writes the whole 128 KiB polynomial). With 128 KiB per block one block
-// runs per SM. No wgmma, TMA or multi-limb blocking yet.
+// What bounds it on an H100. At N = 2^15 a polynomial moves 512 KiB of
+// int64 through HBM (256 KiB in, 256 KiB out) for 15 x 2^14 butterflies of
+// ~7 integer instructions each: at 3.35 TB/s against 132 SMs x 64 INT32
+// lanes the bytes bound it, by a small margin. What holds it back in
+// practice (PERF.md): one 132 KiB block fills an SM at logN 15, so
+// a block's passes overlap HBM only where its warps run out of step, and
+// each stage waits on its twiddles' L2 latency, which 64 registers a
+// thread cannot prefetch.
+//
+// Design (launch geometry in ops/ntt_cuda.py::geometry, checked here):
+// - Register radix passes. A thread holds 32 coefficients and runs up to 5
+//   stages on them in registers, so logN = 15 takes 3 passes (5 + 5 + 5)
+//   and 2 block barriers instead of 15 stages with a barrier each. Every
+//   loop bound is a compile-time constant (templates on the pass width
+//   and the stage), so the 32 values never leave registers. The passes are
+//   5 stages each and a last one with the rest (pass_bits); the forward
+//   kernel runs them from the top bit down, the inverse from bit 0 up. A
+//   thread with fewer than 5 bits in a pass holds several groups and runs
+//   them one after another (`dep`).
+// - Between passes the polynomial lives in shared memory, padded by one
+//   word per 32 (index i at i + i / 32): with threads numbered g-major
+//   (value_index) every pass's accesses are conflict-free
+//   (tests/test_torch_ntt.py checks the banks of every warp), and a
+//   register's address is a constant offset from its group's base.
+// - HBM inside the passes, so that one warp's loads overlap another's
+//   butterflies and no block barrier waits for all of HBM. The pass at
+//   bit 0 (the inverse's first, the forward's last) gives each warp 32
+//   neighbouring groups: the warp stages them through its own part of
+//   shared memory with 16-byte accesses, neighbouring lanes on
+//   neighbouring pairs, behind a __syncwarp. The forward's first pass and
+//   the inverse's last read or write their values straight from or to
+//   HBM, neighbouring threads on neighbouring words. The reads reduce by
+//   Barrett on the way in.
+// - Packed twiddles: one 8-byte load per twiddle (16 for a pair), each
+//   loaded once per pass. The passes away from bit 0 read twiddles that a
+//   whole warp shares; the pass at bit 0 reads N/2 + N/4 + ... distinct
+//   ones, so the table stores them in the order that pass reads them
+//   (ntt_cuda.twiddle_order): neighbouring threads read neighbouring words.
+// - Harvey's lazy butterflies: values stay in [0, 4q) (forward) or [0, 2q)
+//   (inverse), with one conditional subtraction per butterfly written as an
+//   unsigned min, and are made canonical once, in the last pass. The
+//   launcher refuses q >= 2^30, so 4q < 2^32.
+// - More than one polynomial in flight per SM: a block holds 2^log_polys
+//   polynomials (several below logN 13); at logN 14 a block of 512
+//   threads takes 66 KiB and two share an SM; at logN 15 a block of 1024
+//   threads and 132 KiB owns one. Splitting a polynomial over a 2-CTA
+//   cluster (distributed shared memory, two polynomials per SM) measured
+//   slower (PERF.md) and is not kept.
+// No tensor cores: a 32-bit modular butterfly has no wgmma form.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ uint32_t csub(uint32_t a, uint32_t q) {
-  return a >= q ? a - q : a;
+constexpr int kLogVals = 5;  // a thread holds 2^5 coefficients
+constexpr int kMaxPassBits = 5;  // stages of one register pass
+constexpr int kMaxThreads = (1 << 15) >> kLogVals;
+
+struct Args {
+  const int64_t* x;
+  int64_t* out;
+  const uint64_t* pack;  // (L, N): w | w_shoup << 32
+  const int64_t* q;
+  const int64_t* bar;
+  const int64_t* ninv;     // inverse only
+  const int64_t* ninv_sh;  // inverse only
+  int n_polys, L, logn, log_polys;
+};
+
+// a - m if a >= m else a, for a < 2m < 2^32 (a - m wraps above a when
+// a < m, so the unsigned min picks the right one).
+__device__ __forceinline__ uint32_t csub(uint32_t a, uint32_t m) {
+  return min(a, a - m);
 }
 
-// a * w mod q for any a < 2^32, w < q, wsh = floor(w * 2^32 / q).
-__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
-                                              uint32_t wsh, uint32_t q) {
-  uint32_t t = __umulhi(a, wsh);
-  return csub(a * w - t * q, q);
+// a * w mod q in [0, 2q) for any a < 2^32, w < q, wsh = floor(w 2^32 / q).
+__device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w,
+                                               uint32_t wsh, uint32_t q) {
+  return a * w - __umulhi(a, wsh) * q;
 }
 
-// any a < 2^32 -> [0, q), bar = floor(2^32 / q).
-__device__ __forceinline__ uint32_t barrett(uint32_t a, uint32_t q,
-                                            uint32_t bar) {
-  uint32_t r = a - __umulhi(a, bar) * q;
-  return csub(csub(r, q), q);
+// Any a < 2^32 -> [0, 2q), bar = floor(2^32 / q).
+__device__ __forceinline__ uint32_t barrett_lazy(uint32_t a, uint32_t q,
+                                                 uint32_t bar) {
+  return a - __umulhi(a, bar) * q;
 }
 
-__device__ __forceinline__ void load_reduced(uint32_t* s, const int64_t* x,
-                                             int n, uint32_t q,
-                                             uint32_t bar) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s[i] = barrett(static_cast<uint32_t>(x[i]), q, bar);
+// Cooley-Tukey: x, y in [0, 4q) -> x + w y, x - w y in [0, 4q).
+__device__ __forceinline__ void ct_bfly(uint32_t& x, uint32_t& y,
+                                        uint64_t w, uint32_t q,
+                                        uint32_t q2) {
+  const uint32_t a = csub(x, q2);
+  const uint32_t t = shoup_lazy(y, static_cast<uint32_t>(w),
+                                static_cast<uint32_t>(w >> 32), q);
+  x = a + t;
+  y = a - t + q2;
 }
 
-__global__ void __launch_bounds__(1024)
-ntt_fwd_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
-               const int64_t* __restrict__ psi,
-               const int64_t* __restrict__ psi_sh,
-               const int64_t* __restrict__ qv,
-               const int64_t* __restrict__ barv, int L, int logn) {
-  extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const int limb = blockIdx.x % L;
-  const size_t base = static_cast<size_t>(blockIdx.x) * n;
-  const uint32_t q = static_cast<uint32_t>(qv[limb]);
-  const int64_t* w = psi + static_cast<size_t>(limb) * n;
-  const int64_t* wsh = psi_sh + static_cast<size_t>(limb) * n;
+// Gentleman-Sande: x, y in [0, 2q) -> x + y, w (x - y) in [0, 2q).
+__device__ __forceinline__ void gs_bfly(uint32_t& x, uint32_t& y,
+                                        uint64_t w, uint32_t q,
+                                        uint32_t q2) {
+  const uint32_t s = x + y;
+  const uint32_t d = x - y + q2;
+  x = csub(s, q2);
+  y = shoup_lazy(d, static_cast<uint32_t>(w), static_cast<uint32_t>(w >> 32),
+                 q);
+}
 
-  load_reduced(s, x + base, n, q, static_cast<uint32_t>(barv[limb]));
-  __syncthreads();
-  // stage with m groups of 2t: u = s[2it + j], v = s[2it + t + j],
-  // twiddle psi[m + i]
-  for (int m = 1, logt = logn - 1; m < n; m <<= 1, --logt) {
-    const int tmask = (1 << logt) - 1;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int i = k >> logt;
-      const int iu = (i << (logt + 1)) + (k & tmask);
-      const int iv = iu + (1 << logt);
-      const uint32_t u = s[iu];
-      const uint32_t vs = shoup_mul(s[iv], static_cast<uint32_t>(w[m + i]),
-                                    static_cast<uint32_t>(wsh[m + i]), q);
-      s[iu] = csub(u + vs, q);
-      s[iv] = csub(u + q - vs, q);
+__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+
+// 0 for every value the kernels hold (all below 4q < 2^32 - 4), which the
+// compiler cannot prove: adding it to an address makes a load wait for x
+// without changing where it reads.
+__device__ __forceinline__ int never(uint32_t x) {
+  return x == 0xFFFFFFFFu;
+}
+
+// Index in the block's coefficient array of the value a thread keeps in
+// register (g, c) during a pass over bits [lo, lo + r): the pass's bits
+// come from c, every other bit from o = g * threads + thread (g-major, so
+// that neighbouring threads hold neighbouring o).
+__device__ __forceinline__ int value_index(int thread, int threads, int g,
+                                           int c, int lo, int r) {
+  const int o = g * threads + thread;
+  return ((o >> lo) << (lo + r)) | (c << lo) | (o & ((1 << lo) - 1));
+}
+
+// Offset of register c's word from the padded base of its group in a pass
+// over bits [lo, lo + R): padded(base | c << lo) = padded(base) + t +
+// t / 32 with t = c << lo, since the bit fields do not overlap. kMode 0
+// (lo = 0): c itself, a constant; 1 (lo >= 5): c * stride, stride =
+// 2^lo + 2^(lo - 5); 2: the general form.
+template <int kMode>
+__device__ __forceinline__ int offset(int c, int lo, int stride) {
+  if (kMode == 0) return c;
+  if (kMode == 1) return c * stride;
+  const int t = c << lo;
+  return t + (t >> 5);
+}
+
+// Stage bit b = lo + J of a register pass over bits [lo, lo + R): the
+// butterflies (c, c + 2^J) of the 2^R values, the ones with c >> (J + 1)
+// == cc taking twiddle t[cc * step]. With step 1 the cnt twiddles are
+// neighbours, read in 16-byte pairs when there are two or more; a pass at
+// lo = 0 (kSpread) reads the table in its spread order (ntt_cuda.
+// twiddle_order), where the twiddles of neighbouring threads are
+// neighbours instead. Every bound is a compile-time constant, so the loops
+// unroll and v stays in registers.
+template <bool kFwd, int R, int J, bool kSpread>
+__device__ __forceinline__ void stage(uint32_t (&v)[1 << R],
+                                      const uint64_t* t, int step,
+                                      uint32_t q, uint32_t q2) {
+  constexpr int cnt = 1 << (R - 1 - J);
+  ulonglong2 w2;
+#pragma unroll
+  for (int cc = 0; cc < cnt; ++cc) {
+    uint64_t w;
+    if (cnt == 1 || kSpread) {
+      w = __ldg(t + cc * step);
+    } else {  // cnt even and t 16-byte aligned
+      if (cc % 2 == 0)
+        w2 = __ldg(reinterpret_cast<const ulonglong2*>(t + cc));
+      w = cc % 2 ? w2.y : w2.x;
     }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    out[base + i] = static_cast<int64_t>(s[i]);
-}
-
-__global__ void __launch_bounds__(1024)
-ntt_inv_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out,
-               const int64_t* __restrict__ ipsi,
-               const int64_t* __restrict__ ipsi_sh,
-               const int64_t* __restrict__ qv,
-               const int64_t* __restrict__ barv,
-               const int64_t* __restrict__ ninv,
-               const int64_t* __restrict__ ninv_sh, int L, int logn) {
-  extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const int limb = blockIdx.x % L;
-  const size_t base = static_cast<size_t>(blockIdx.x) * n;
-  const uint32_t q = static_cast<uint32_t>(qv[limb]);
-  const int64_t* w = ipsi + static_cast<size_t>(limb) * n;
-  const int64_t* wsh = ipsi_sh + static_cast<size_t>(limb) * n;
-
-  load_reduced(s, x + base, n, q, static_cast<uint32_t>(barv[limb]));
-  __syncthreads();
-  // stage with h groups of 2t: u = s[2it + j], v = s[2it + t + j],
-  // twiddle ipsi[h + i]
-  for (int h = half, logt = 0; h >= 1; h >>= 1, ++logt) {
-    const int tmask = (1 << logt) - 1;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int i = k >> logt;
-      const int iu = (i << (logt + 1)) + (k & tmask);
-      const int iv = iu + (1 << logt);
-      const uint32_t u = s[iu];
-      const uint32_t v = s[iv];
-      s[iu] = csub(u + v, q);
-      s[iv] = shoup_mul(csub(u + q - v, q), static_cast<uint32_t>(w[h + i]),
-                        static_cast<uint32_t>(wsh[h + i]), q);
+#pragma unroll
+    for (int low = 0; low < (1 << J); ++low) {
+      const int c0 = (cc << (J + 1)) | low;
+      const int c1 = c0 | (1 << J);
+      if (kFwd)
+        ct_bfly(v[c0], v[c1], w, q, q2);
+      else
+        gs_bfly(v[c0], v[c1], w, q, q2);
     }
-    __syncthreads();
   }
-  const uint32_t nv = static_cast<uint32_t>(ninv[limb]);
-  const uint32_t nvsh = static_cast<uint32_t>(ninv_sh[limb]);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    out[base + i] = static_cast<int64_t>(shoup_mul(s[i], nv, nvsh, q));
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int logn, size_t* smem, int* threads) {
-  if (logn < 1 || logn > 15) return cudaErrorInvalidValue;
-  const int n = 1 << logn;
-  *smem = static_cast<size_t>(n) * sizeof(uint32_t);
-  *threads = n / 2 < 1024 ? n / 2 : 1024;
+// Stages S .. R - 1 of a pass (the forward from the top bit down, the
+// inverse from bit lo up). The twiddles of bit b = lo + J for the group
+// with high bits hi: tw[m + (hi << (R - 1 - J)) + cc], m = n >> (b + 1);
+// in the spread order of a pass at lo = 0, tw[m + cc * (n >> R) + hi].
+template <bool kFwd, int R, int S, bool kSpread>
+__device__ __forceinline__ void stages(uint32_t (&v)[1 << R],
+                                       const uint64_t* tw, int n, int hi,
+                                       int lo, uint32_t q, uint32_t q2) {
+  if constexpr (S < R) {
+    constexpr int J = kFwd ? R - 1 - S : S;
+    const uint64_t* m = tw + (n >> (lo + J + 1));
+    if (kSpread)
+      stage<kFwd, R, J, true>(v, m + hi, n >> R, q, q2);
+    else
+      stage<kFwd, R, J, false>(v, m + (hi << (R - 1 - J)), 1, q, q2);
+    stages<kFwd, R, S + 1, kSpread>(v, tw, n, hi, lo, q, q2);
+  }
+}
+
+// The block's polynomials in HBM: gbase is the index of their first
+// coefficient, valid the number of coefficients of polynomials that exist
+// (the last block may be short), limb0 the limb of the first.
+struct Span {
+  size_t gbase;
+  int valid;
+  int limb0;
+};
+
+// Limb of the block's coefficient e.
+__device__ __forceinline__ int limb_of(const Args& a, const Span& sp, int e) {
+  return a.log_polys ? (sp.limb0 + (e >> a.logn)) % a.L : sp.limb0;
+}
+
+// One register pass of R stages over bits [lo, lo + R) of every
+// polynomial in the block: each of the thread's G = 2^kLogVals / 2^R
+// groups of 2^R values is read, transformed and written in turn, from and
+// to shared memory unless kHbm says otherwise: bit 1 reads HBM (reducing
+// by Barrett), bit 2 writes it; at lo = 0 (kMode 0) through the warp's
+// own part of shared memory, else word by word. The last pass (kLast)
+// makes the values canonical (and, in the inverse, multiplies by N^-1).
+template <bool kFwd, int R, int kMode, bool kLast, int kHbm>
+__device__ __forceinline__ void run_pass(const Args& a, const Span& sp,
+                                         uint32_t* s, int lo) {
+  constexpr int G = (1 << kLogVals) >> R;
+  constexpr int C = 1 << R;
+  const int n = 1 << a.logn;
+  const int stride = (1 << lo) + ((1 << lo) >> 5);
+  const int lane = threadIdx.x & 31;
+  // `dep` is 0, but the compiler cannot know it: it ties each group's
+  // loads to the previous group's results, so the groups run one after
+  // another and only one group's values and twiddles are live.
+  int dep = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int base = value_index(threadIdx.x, blockDim.x, g, 0, lo, R) + dep;
+    // at lo = 0 the warp's 32 groups are neighbours from here on
+    const int wbase = base - lane * C;
+    const int limb = limb_of(a, sp, base);
+    const uint32_t q = static_cast<uint32_t>(__ldg(a.q + limb));
+    const uint32_t q2 = 2 * q;
+    const int pb = padded(base);
+    uint32_t v[C];
+    if ((kHbm & 1) && kMode == 0) {
+#pragma unroll
+      for (int k = 0; k < C / 2; ++k) {
+        const int e = wbase + 2 * (lane + 32 * k);
+        if (e < sp.valid) {
+          const longlong2 xv =
+              __ldcs(reinterpret_cast<const longlong2*>(a.x + sp.gbase + e));
+          const int le = limb_of(a, sp, e);
+          const uint32_t qe = static_cast<uint32_t>(__ldg(a.q + le));
+          const uint32_t bar = static_cast<uint32_t>(__ldg(a.bar + le));
+          s[padded(e)] = barrett_lazy(static_cast<uint32_t>(xv.x), qe, bar);
+          s[padded(e + 1)] = barrett_lazy(static_cast<uint32_t>(xv.y), qe, bar);
+        }
+      }
+      __syncwarp();
+    }
+    if ((kHbm & 1) && kMode != 0) {  // the int64's low word holds the value
+      const uint32_t bar = static_cast<uint32_t>(__ldg(a.bar + limb));
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int i = base | (c << lo);
+        const auto* xi =
+            reinterpret_cast<const unsigned int*>(a.x + sp.gbase + i);
+        v[c] = barrett_lazy(i < sp.valid ? __ldcs(xi) : 0u, q, bar);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = s[pb + offset<kMode>(c, lo, stride)];
+    }
+    const uint64_t* tw = a.pack + (static_cast<size_t>(limb) << a.logn);
+    const int hi = (base & (n - 1)) >> (lo + R);
+    stages<kFwd, R, 0, kMode == 0>(v, tw, n, hi, lo, q, q2);
+    if (kLast) {
+      if (kFwd) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] = csub(csub(v[c], q2), q);
+      } else {
+        const uint32_t nv = static_cast<uint32_t>(__ldg(a.ninv + limb));
+        const uint32_t nvsh = static_cast<uint32_t>(__ldg(a.ninv_sh + limb));
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          v[c] = csub(shoup_lazy(v[c], nv, nvsh, q), q);
+      }
+    }
+    if ((kHbm & 2) && kMode != 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int i = base | (c << lo);
+        if (i < sp.valid)
+          __stcs(reinterpret_cast<long long*>(a.out + sp.gbase + i),
+                 static_cast<long long>(v[c]));
+      }
+    } else {
+      // an opaque copy of pb makes the compiler work the store addresses
+      // out again instead of keeping the loads' live through the stages
+      int spb;
+      asm volatile("mov.b32 %0, %1;" : "=r"(spb) : "r"(pb));
+#pragma unroll
+      for (int c = 0; c < C; ++c) s[spb + offset<kMode>(c, lo, stride)] = v[c];
+    }
+    if ((kHbm & 2) && kMode == 0) {
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < C / 2; ++k) {
+        const int e = wbase + 2 * (lane + 32 * k);
+        if (e < sp.valid)
+          __stcs(reinterpret_cast<longlong2*>(a.out + sp.gbase + e),
+                 make_longlong2(s[padded(e)], s[padded(e + 1)]));
+      }
+    }
+    dep = never(v[0]);
+  }
+}
+
+// Stage bits of register pass k of npasses at logN: 5, and the rest in the
+// last (ops/ntt_cuda.py::_passes, which the tests and the twiddle order
+// use, is the same rule).
+__device__ __forceinline__ int pass_bits(int logn, int k, int npasses) {
+  return k < npasses - 1 ? kMaxPassBits : logn - kMaxPassBits * k;
+}
+
+// The passes of pass_bits, each with the address form of its lo: the
+// forward's passes at lo = logN - 5, logN - 10, ... (form 1 if lo >= 5,
+// else 2) and its last at lo = 0; the inverse's first at lo = 0 and the
+// others at multiples of 5. Instantiating only these keeps the build
+// short.
+template <bool kFwd>
+__device__ __forceinline__ void first_or_middle(const Args& a,
+                                                const Span& sp, uint32_t* s,
+                                                int lo, bool first) {
+  constexpr int R = kMaxPassBits;
+  if (!kFwd && lo == 0)
+    run_pass<kFwd, R, 0, false, 1>(a, sp, s, lo);
+  else if (!kFwd)
+    run_pass<kFwd, R, 1, false, 0>(a, sp, s, lo);
+  else if (first && lo >= 5)
+    run_pass<kFwd, R, 1, false, 1>(a, sp, s, lo);
+  else if (first)
+    run_pass<kFwd, R, 2, false, 1>(a, sp, s, lo);
+  else if (lo >= 5)
+    run_pass<kFwd, R, 1, false, 0>(a, sp, s, lo);
+  else
+    run_pass<kFwd, R, 2, false, 0>(a, sp, s, lo);
+}
+
+template <bool kFwd, int R>
+__device__ __forceinline__ void last_r(const Args& a, const Span& sp,
+                                       uint32_t* s, int lo, bool only) {
+  if (only)
+    run_pass<kFwd, R, 0, true, 3>(a, sp, s, lo);
+  else if (kFwd)
+    run_pass<kFwd, R, 0, true, 2>(a, sp, s, lo);
+  else
+    run_pass<kFwd, R, 1, true, 2>(a, sp, s, lo);
+}
+
+template <bool kFwd>
+__device__ __forceinline__ void last(const Args& a, const Span& sp,
+                                     uint32_t* s, int r, int lo, bool only) {
+  switch (r) {
+    case 1: last_r<kFwd, 1>(a, sp, s, lo, only); break;
+    case 2: last_r<kFwd, 2>(a, sp, s, lo, only); break;
+    case 3: last_r<kFwd, 3>(a, sp, s, lo, only); break;
+    case 4: last_r<kFwd, 4>(a, sp, s, lo, only); break;
+    default: last_r<kFwd, 5>(a, sp, s, lo, only); break;
+  }
+}
+
+template <bool kFwd>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+ntt_kernel(const Args a) {
+  extern __shared__ uint32_t smem[];
+  const int size = 1 << (a.logn + a.log_polys);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) << a.log_polys;
+  const int64_t left = (static_cast<int64_t>(a.n_polys) - first) << a.logn;
+  const Span sp{static_cast<size_t>(first) << a.logn,
+                static_cast<int>(left < size ? left : size),
+                static_cast<int>(first % a.L)};
+  const int npasses = (a.logn + kMaxPassBits - 1) / kMaxPassBits;
+  int lo = kFwd ? a.logn : 0;
+  for (int k = 0; k < npasses; ++k) {
+    const int r = pass_bits(a.logn, k, npasses);
+    if (kFwd) lo -= r;
+    if (k < npasses - 1) {
+      first_or_middle<kFwd>(a, sp, smem, lo, k == 0);
+      __syncthreads();
+    } else {
+      last<kFwd>(a, sp, smem, r, lo, npasses == 1);
+    }
+    if (!kFwd) lo += r;
+  }
+}
+
+// The launcher's geometry against what the kernel needs.
+bool geometry_ok(const Args& a, int blocks, int threads, int smem) {
+  if (a.logn < 1 || a.logn > 15 || a.log_polys < 0 || a.L < 1 ||
+      a.n_polys < 1)
+    return false;
+  const int log_s = a.logn + a.log_polys;
+  if (log_s > 15 || threads << kLogVals != 1 << log_s || threads % 32)
+    return false;
+  const int size = 1 << log_s;
+  if (smem < static_cast<int>(sizeof(uint32_t)) * (size + size / 32))
+    return false;
+  return (static_cast<int64_t>(blocks) << a.log_polys) >= a.n_polys &&
+         (static_cast<int64_t>(blocks - 1) << a.log_polys) < a.n_polys;
+}
+
+template <bool kFwd>
+int launch(const Args& a, int blocks, int threads, int smem, void* stream) {
+  if (!geometry_ok(a, blocks, threads, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
   // Above 48 KiB of dynamic shared memory the launch is refused unless
   // the kernel has opted in.
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
+  cudaError_t err = cudaFuncSetAttribute(
+      ntt_kernel<kFwd>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ntt_kernel<kFwd><<<blocks, threads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Every pointer is device memory;
-// stream is a cudaStream_t. Returns cudaGetLastError() after the launch.
-extern "C" int mkhe_ntt_fwd(const void* x, void* out, const void* psi,
-                            const void* psi_sh, const void* q,
-                            const void* bar, int n_polys, int L, int logn,
-                            void* stream) {
-  size_t smem;
-  int threads;
-  cudaError_t err = prepare(ntt_fwd_kernel, logn, &smem, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_fwd_kernel<<<n_polys, threads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
-      static_cast<const int64_t*>(psi), static_cast<const int64_t*>(psi_sh),
-      static_cast<const int64_t*>(q), static_cast<const int64_t*>(bar), L,
-      logn);
-  return static_cast<int>(cudaGetLastError());
+// stream is a cudaStream_t. The launch geometry (log_polys, blocks,
+// threads, smem) comes from ops/ntt_cuda.py::geometry; a geometry the
+// kernel cannot run returns cudaErrorInvalidValue. Returns
+// cudaGetLastError() after the launch.
+extern "C" int mkhe_ntt_fwd(const void* x, void* out, const void* pack,
+                            const void* q, const void* bar, int n_polys,
+                            int L, int logn, int log_polys, int blocks,
+                            int threads, int smem, void* stream) {
+  const Args a{static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
+               static_cast<const uint64_t*>(pack),
+               static_cast<const int64_t*>(q),
+               static_cast<const int64_t*>(bar), nullptr, nullptr,
+               n_polys, L, logn, log_polys};
+  return launch<true>(a, blocks, threads, smem, stream);
 }
 
-extern "C" int mkhe_ntt_inv(const void* x, void* out, const void* ipsi,
-                            const void* ipsi_sh, const void* q,
-                            const void* bar, const void* ninv,
-                            const void* ninv_sh, int n_polys, int L,
-                            int logn, void* stream) {
-  size_t smem;
-  int threads;
-  cudaError_t err = prepare(ntt_inv_kernel, logn, &smem, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_inv_kernel<<<n_polys, threads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
-      static_cast<const int64_t*>(ipsi),
-      static_cast<const int64_t*>(ipsi_sh), static_cast<const int64_t*>(q),
-      static_cast<const int64_t*>(bar), static_cast<const int64_t*>(ninv),
-      static_cast<const int64_t*>(ninv_sh), L, logn);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int mkhe_ntt_inv(const void* x, void* out, const void* pack,
+                            const void* q, const void* bar, const void* ninv,
+                            const void* ninv_sh, int n_polys, int L, int logn,
+                            int log_polys, int blocks, int threads, int smem,
+                            void* stream) {
+  const Args a{static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
+               static_cast<const uint64_t*>(pack),
+               static_cast<const int64_t*>(q),
+               static_cast<const int64_t*>(bar),
+               static_cast<const int64_t*>(ninv),
+               static_cast<const int64_t*>(ninv_sh),
+               n_polys, L, logn, log_polys};
+  return launch<false>(a, blocks, threads, smem, stream);
 }

@@ -1,11 +1,22 @@
-"""Negacyclic NTT / iNTT: the CUDA kernels, their build and launcher, launch
-counters, and the plain PyTorch versions.
+"""Negacyclic NTT / iNTT: the CUDA kernels, their build, launch geometry
+and launcher, launch counters, and the plain PyTorch versions.
 
 The kernels of csrc/ntt.cu replace the TPU kernels
-mkhe_tpu/ops/ntt_pallas.py::_fwd_kernel and ::_inv_kernel. On an H100
-they are bound by integer multiplies and shared-memory traffic: one block
-holds one polynomial in shared memory, and each of the logN stages reads
-and writes the whole 128 KiB (N = 2^15).
+mkhe_tpu/ops/ntt_pallas.py::_fwd_kernel and ::_inv_kernel. On an H100 the
+bytes bound them: at N = 2^15 a polynomial moves 512 KiB of int64 through
+HBM for 15 x 2^14 butterflies. Each thread holds 32 coefficients and runs
+up to 5 stages in registers per pass (3 passes and 2 block barriers at
+logN 15); between passes the polynomial sits in padded, conflict-free shared
+memory; HBM is read and written inside the first and last passes;
+butterflies are Harvey's lazy ones (values below 4q, canonical once at the
+end, so q < 2^30, which `pack_twiddles` enforces when a ring's tables are
+built); twiddles come packed with their Shoup quotients, one 8-byte load
+each (Ring.psi_pack / ipsi_pack), the ones of the pass at bit 0 in the
+order its threads read them (`twiddle_order`). What holds them back
+(PERF.md): at logN 15 one block fills an SM, and each stage waits on its
+twiddles. `geometry` sets the launch: polynomials per block (several below
+logN 13), blocks, threads and shared memory, which the kernel checks, and
+the passes per logN, which the kernel works out by the same rule.
 
 The kernels of csrc/ntt_tail.cu are the split form of the same transforms
 (config.ntt_mxu_tail), replacing _fwd_kernel(head_only=True),
@@ -29,12 +40,14 @@ loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import modmath as mm
@@ -43,7 +56,11 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mkhe_tpu_torch"
 LIB_PATH = BUILD_DIR / "libmkhe_ntt.so"
-MAX_LOGN = 15   # one polynomial of 2^15 u32 fills 128 KiB of shared memory
+MAX_LOGN = 15   # one polynomial of 2^15 u32 fills 132 KiB of shared memory
+MAX_Q = 1 << 30  # the lazy butterflies keep values below 4q < 2^32
+LOG_VALS = 5     # a thread of the full kernels holds 2^5 coefficients
+MAX_PASS_BITS = 5   # stages of one register pass
+LOG_MIN_BLOCK = 13  # a block of the full kernels holds >= 2^13 coefficients
 SPLIT_MIN_LOGN = 7  # the split kernels work on whole 128-lane blocks
 TAIL_LANES = 128
 TAIL_DIGITS = 5
@@ -140,9 +157,9 @@ def load() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(LIB_PATH))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mkhe_ntt_fwd.argtypes = [vp] * 6 + [ci, ci, ci, vp]
+    lib.mkhe_ntt_fwd.argtypes = [vp] * 5 + [ci] * 7 + [vp]
     lib.mkhe_ntt_fwd.restype = ci
-    lib.mkhe_ntt_inv.argtypes = [vp] * 8 + [ci, ci, ci, vp]
+    lib.mkhe_ntt_inv.argtypes = [vp] * 7 + [ci] * 7 + [vp]
     lib.mkhe_ntt_inv.restype = ci
     lib.mkhe_ntt_fwd_head.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.mkhe_ntt_fwd_head.restype = ci
@@ -156,6 +173,121 @@ def load() -> ctypes.CDLL:
 # ----------------------------------------------------------------------------
 # Launchers
 # ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Launch of a full kernel (csrc/ntt.cu). `passes`: the stage bits of
+    each register pass, summing to logN (the kernel's pass_bits is the same
+    rule); the forward kernel runs them from the top bit down, the inverse
+    from bit 0 up. A block holds 2^log_polys polynomials; `blocks` blocks
+    of `threads` threads, each with `smem` bytes of dynamic shared memory
+    (its coefficients, padded by one word per 32)."""
+    logn: int
+    passes: tuple
+    log_polys: int
+    blocks: int
+    threads: int
+    smem: int
+
+
+def _passes(logn: int) -> tuple:
+    """Stage bits of the register passes: MAX_PASS_BITS each, the rest in
+    a last one."""
+    full, rest = divmod(logn, MAX_PASS_BITS)
+    return (MAX_PASS_BITS,) * full + ((rest,) if rest else ())
+
+
+@functools.lru_cache(maxsize=1024)
+def geometry(logn: int, n_polys: int) -> Geometry:
+    """The full kernels' launch for n_polys polynomials of 2^logn: passes
+    of MAX_PASS_BITS stages and one with the rest (this order keeps every
+    warp's shared-memory access conflict-free with value_index's layout);
+    a block of at least 2^LOG_MIN_BLOCK coefficients (several polynomials
+    below that), each thread holding 2^LOG_VALS of them."""
+    if not 1 <= logn <= MAX_LOGN:
+        raise ValueError(f"logN = {logn}: the kernels take 1..{MAX_LOGN}")
+    if n_polys < 0:
+        raise ValueError(f"n_polys = {n_polys}")
+    passes = _passes(logn)
+    log_polys = max(0, LOG_MIN_BLOCK - logn)
+    size = 1 << (logn + log_polys)
+    return Geometry(logn=logn, passes=passes, log_polys=log_polys,
+                    blocks=(n_polys + (1 << log_polys) - 1) >> log_polys,
+                    threads=size >> LOG_VALS, smem=4 * (size + size // 32))
+
+
+def value_index(thread, threads, g, c, lo: int, r: int):
+    """Index in the block's coefficient array of the value a thread
+    (of `threads`) keeps in register (g, c) during a pass over bits
+    [lo, lo + r): the pass's bits come from c, every other bit from
+    o = g * threads + thread. The kernel's formula (csrc/ntt.cu::
+    value_index), for the tests; works on numpy arrays."""
+    o = g * threads + thread
+    return ((o >> lo) << (lo + r)) | (c << lo) | (o & ((1 << lo) - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def twiddle_order(logn: int, fwd: bool) -> np.ndarray:
+    """Where the full kernels' packed table keeps each twiddle: position k
+    holds the natural (psi / ipsi) entry order[k]. The pass at lo = 0 (the
+    forward's last, the inverse's first) has R = passes[-1] (forward) or
+    passes[0] (inverse) stages, B = N / 2^R groups of 2^R coefficients,
+    and in stage bit j < R takes the cnt = 2^(R-1-j) twiddles m + hi * cnt
+    + cc (m = N / 2^(j+1)) for its group hi. Spread order stores entry
+    m + hi * cnt + cc at m + cc * B + hi, so neighbouring threads (hi)
+    read neighbouring words; the entries below N / 2^R, which threads
+    share, keep their places."""
+    passes = _passes(logn)
+    r = passes[-1] if fwd else passes[0]
+    n = 1 << logn
+    order = np.arange(n)
+    blocks = n >> r
+    for j in range(r):
+        m = n >> (j + 1)
+        cnt = m // blocks
+        hi, cc = np.meshgrid(np.arange(blocks), np.arange(cnt),
+                             indexing="ij")
+        order[m + cc * blocks + hi] = m + hi * cnt + cc
+    return order
+
+
+def pack_twiddles(w: np.ndarray, w_sh: np.ndarray, moduli,
+                  fwd: bool) -> np.ndarray:
+    """The full kernels' twiddle table from (L, N) tables w, w_sh of the L
+    moduli: w | w_sh << 32 as int64, so one 8-byte load gives a twiddle and
+    its Shoup quotient (both < 2^32), in twiddle_order. Raises unless every
+    modulus is below MAX_Q, so that the kernels' lazy values (< 4q) fit in
+    32 bits: every packed table, and so every launch, has passed this
+    check."""
+    bad = [q for q in moduli if not 2 <= q < MAX_Q]
+    if bad:
+        raise ValueError(f"the NTT kernels take moduli 2 <= q < 2^30, got "
+                         f"{bad}")
+    order = twiddle_order(w.shape[-1].bit_length() - 1, fwd)
+    packed = w.astype(np.uint64) | (w_sh.astype(np.uint64) << np.uint64(32))
+    return np.ascontiguousarray(packed[..., order]).view(np.int64)
+
+
+def unpack_twiddles(pack: torch.Tensor, fwd: bool):
+    """(w, w_sh) int64 tensors in natural order of a packed table (the
+    inverse of pack_twiddles, for the tests)."""
+    logn = pack.shape[-1].bit_length() - 1
+    order = torch.from_numpy(twiddle_order(logn, fwd)).to(pack.device)
+    natural = torch.empty_like(pack)
+    natural[..., order] = pack
+    return natural & mm.MASK32, (natural >> 32) & mm.MASK32
+
+
+def _check_full(x, tables, pack, consts):
+    """_check for the full kernels: the natural (L, N) tables of the plain
+    version and the packed one of the kernel, 16-byte aligned (the kernels
+    read twiddle pairs)."""
+    shape = _check(x, (*tables, pack), consts)
+    if pack.data_ptr() % 16:
+        raise ValueError("packed twiddle table: the kernels read 16-byte "
+                         "pairs, so it must be 16-byte aligned")
+    return shape
+
 
 def _check(x, tables, consts, min_logn=1):
     """Validate what the kernels take; returns (n_polys, L, logn)."""
@@ -206,9 +338,9 @@ def _check_tail(x, q, r_inv, mat, pw):
     return shape
 
 
-def _launch(fn, x, args, shape):
-    """Launch fn(x, out, *args, n_polys, L, logn, stream) on x's device,
-    shape = _check(...)'s (n_polys, L, logn)."""
+def _launch(fn, x, args, shape, extra=()):
+    """Launch fn(x, out, *args, n_polys, L, logn, *extra, stream) on x's
+    device, shape = _check(...)'s (n_polys, L, logn)."""
     n_polys, L, logn = shape
     out = torch.empty_like(x)
     if n_polys == 0:
@@ -218,10 +350,24 @@ def _launch(fn, x, args, shape):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(),
-                 *[t.data_ptr() for t in args], n_polys, L, logn, stream)
+                 *[t.data_ptr() for t in args], n_polys, L, logn, *extra,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     return out
+
+
+def launch_full(fwd: bool, x, args, shape, geom: Geometry):
+    """Launch the forward (fwd) or inverse full kernel on x with the
+    tables `args` in the C order and the launch geom; shape =
+    _check_full(...)'s (n_polys, L, logn). Counts nothing: ntt / intt do."""
+    if shape[2] != geom.logn:
+        raise ValueError(f"geometry for logN {geom.logn}, data {shape[2]}")
+    if x.data_ptr() % 16:   # the kernels read 16-byte pairs
+        x = x.clone()
+    return _launch(load().mkhe_ntt_fwd if fwd else load().mkhe_ntt_inv, x,
+                   args, shape, (geom.log_polys, geom.blocks, geom.threads,
+                                 geom.smem))
 
 
 def _device_route(x) -> bool:
@@ -233,28 +379,31 @@ def _device_route(x) -> bool:
     raise ValueError(f"no NTT for device {x.device}")
 
 
-def ntt(x, q, bar, psi, psi_sh):
+def ntt(x, q, bar, psi, psi_sh, psi_pack):
     """Forward NTT of (..., L, N), any u32 input -> canonical, bit-reversed
-    order. Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    order. Kernel on a CUDA tensor (it reads psi_pack, Ring.psi_pack),
+    plain version on a CPU tensor (it reads psi and psi_sh)."""
     global fwd_launches
-    shape = _check(x, (psi, psi_sh), (q, bar))
+    shape = _check_full(x, (psi, psi_sh), psi_pack, (q, bar))
     if not _device_route(x):
         return ntt_plain(x, q, bar, psi, psi_sh)
-    out = _launch(load().mkhe_ntt_fwd, x, (psi, psi_sh, q, bar), shape)
+    out = launch_full(True, x, (psi_pack, q, bar), shape,
+                      geometry(shape[2], shape[0]))
     fwd_launches += 1
     return out
 
 
-def intt(x, q, bar, ipsi, ipsi_sh, ninv, ninv_sh):
+def intt(x, q, bar, ipsi, ipsi_sh, ninv, ninv_sh, ipsi_pack):
     """Inverse NTT of (..., L, N), any u32 input (in particular the lazy
     < 8q inputs of the key-switch pipeline) -> canonical, standard order.
-    Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    Kernel on a CUDA tensor (it reads ipsi_pack, Ring.ipsi_pack), plain
+    version on a CPU tensor (it reads ipsi and ipsi_sh)."""
     global inv_launches
-    shape = _check(x, (ipsi, ipsi_sh), (q, bar, ninv, ninv_sh))
+    shape = _check_full(x, (ipsi, ipsi_sh), ipsi_pack, (q, bar, ninv, ninv_sh))
     if not _device_route(x):
         return intt_plain(x, q, bar, ipsi, ipsi_sh, ninv, ninv_sh)
-    out = _launch(load().mkhe_ntt_inv, x,
-                  (ipsi, ipsi_sh, q, bar, ninv, ninv_sh), shape)
+    out = launch_full(False, x, (ipsi_pack, q, bar, ninv, ninv_sh), shape,
+                      geometry(shape[2], shape[0]))
     inv_launches += 1
     return out
 

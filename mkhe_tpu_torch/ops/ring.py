@@ -42,7 +42,7 @@ from .ntt_cuda import TAIL_DIGIT_BITS, TAIL_DIGITS, TAIL_LANES
 from .primes import primitive_root_2n
 
 TABLE_FIELDS = ("q", "r_inv", "r2", "bar", "psi", "psi_sh", "ipsi",
-                "ipsi_sh", "ninv", "ninv_sh")
+                "ipsi_sh", "ninv", "ninv_sh", "psi_pack", "ipsi_pack")
 
 # Stages with half-block h < TAIL_LANES = 128 stay inside one 128-lane
 # block: together they are one fixed 128x128 map per limb, stored as
@@ -81,7 +81,10 @@ def _host_tables(moduli: Tuple[int, ...], logn: int) -> dict:
     """Per-limb constants as int64 numpy arrays. q, r2, bar, psi, psi_sh,
     ipsi, ipsi_sh, ninv and ninv_sh equal the JAX package's tables of the
     same names (mkhe_tpu/ops/ring.py::_host_tables); r_inv = 2^-32 mod q
-    is the port's Montgomery reduction constant."""
+    is the port's Montgomery reduction constant; psi_pack / ipsi_pack hold
+    each twiddle with its Shoup quotient in one word, in the order the NTT
+    kernels read them (ntt_cuda.pack_twiddles, which raises for a modulus
+    of 2^30 or more)."""
     n = 1 << logn
     L = len(moduli)
     consts = {k: np.empty(L, np.int64)
@@ -102,6 +105,10 @@ def _host_tables(moduli: Tuple[int, ...], logn: int) -> dict:
         nv = pow(n, -1, qi)
         consts["ninv"][i] = nv
         consts["ninv_sh"][i] = mm.shoup_host(nv, qi)
+    tabs["psi_pack"] = ntt_cuda.pack_twiddles(tabs["psi"], tabs["psi_sh"],
+                                              moduli, True)
+    tabs["ipsi_pack"] = ntt_cuda.pack_twiddles(tabs["ipsi"], tabs["ipsi_sh"],
+                                               moduli, False)
     return {**consts, **tabs}
 
 
@@ -226,6 +233,8 @@ class Ring:
     ipsi_sh: torch.Tensor
     ninv: torch.Tensor
     ninv_sh: torch.Tensor
+    psi_pack: torch.Tensor
+    ipsi_pack: torch.Tensor
 
     # -- construction -------------------------------------------------------
 
@@ -314,7 +323,8 @@ class Ring:
                                      t.wpack, t.wpack_sh)
             return ntt_cuda.tail(head, self.q, self.r_inv, t.tail_fwd,
                                  t.tail_pow)
-        return ntt_cuda.ntt(a, self.q, self.bar, self.psi, self.psi_sh)
+        return ntt_cuda.ntt(a, self.q, self.bar, self.psi, self.psi_sh,
+                            self.psi_pack)
 
     def intt(self, a):
         """Inverse negacyclic NTT: bit-reversed in, standard order out,
@@ -329,7 +339,7 @@ class Ring:
                                         t.iwpack_sh, t.untwist,
                                         t.untwist_sh)
         return ntt_cuda.intt(a, self.q, self.bar, self.ipsi, self.ipsi_sh,
-                             self.ninv, self.ninv_sh)
+                             self.ninv, self.ninv_sh, self.ipsi_pack)
 
     # -- automorphisms ------------------------------------------------------
 

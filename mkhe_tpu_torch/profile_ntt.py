@@ -1,0 +1,186 @@
+"""Time the full NTT kernels (csrc/ntt.cu) on the card at the main path's
+shapes, against their bound and, optionally, the kernels of another
+checkout.
+
+    python -m mkhe_tpu_torch.profile_ntt [--other DIR] [--reps N]
+
+Shapes (polynomials x limbs x N, the QP moduli of the preset):
+  pn15    8 x 32 x 2^15, PN15QP880 (phase 3 of chip_smoke.py);
+  cnn     8 x 18 x 2^14, PN14QP433_CNN;
+  digits  4 x 14 x 32 x 2^15, PN15QP880: one decomposition's digit NTT of
+          the 4-party mult (1792 polynomials);
+  cnn_hoist  2 x 7 x 18 x 2^14, PN14QP433_CNN: a CNN hoisting's digit NTT
+          of the two parties (252 polynomials).
+Variants: `new` (this checkout's Ring.ntt / Ring.intt) and, with
+--other, `old`: those of another checkout (e.g. the parent commit
+unpacked with `git archive` into build/), loaded beside this one in the
+same process (profile_ab.load_other) with its own kernels and tables.
+Each variant's output must equal the new one's bit for bit (and the plain
+version's at pn15). Times are medians of `reps` CUDA-event timings per
+turn, each the mean of 10 back-to-back calls, the variants in turns old,
+new, new, old; the last line is one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+
+from . import profile_ab
+from .mkckks import params as ckks_params
+from .ops import ntt_cuda
+from .ops.ring import Ring
+
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM (NVIDIA data sheet)
+# 132 SMs x 64 INT32 lanes x 1.98 GHz: int32 instructions per second (half
+# the float32 lanes behind the 67 TFLOP/s of the same data sheet)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT8_OPS_PER_S = 1.979e15                 # dense int8 tensor-core rate
+
+SHAPES = {"pn15": ("PN15QP880", (8,)), "cnn": ("PN14QP433_CNN", (8,)),
+          "digits": ("PN15QP880", (4, 14)),
+          "cnn_hoist": ("PN14QP433_CNN", (2, 7))}
+
+
+def qp_ring(preset: str, device="cuda", ring_cls=Ring):
+    """The QP ring of a CKKS preset, without its keys or CRS."""
+    kw = dict(ckks_params._PRESETS[preset])
+    logn = kw.pop("logn")
+    kw.pop("logslots")
+    kw.pop("scale")
+    q, p = ckks_params.select_moduli(logn, **kw)
+    return ring_cls.create(q + p, logn, device)
+
+
+def bound(nbytes: int, int32_ops: int = 0, int8_ops: int = 0):
+    """(ms, "bytes" or "operations"): the least time an H100 could take to
+    move nbytes through HBM and do the operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(int32_ops / INT32_OPS_PER_S, int8_ops / INT8_OPS_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_bound(name: str, x, tables):
+    """Bound of one launch of an NTT kernel on x (..., L, N) with its
+    tables: x read once and the output written once (int64), every table
+    and constant read once; 6 int32 operations a butterfly (three
+    products, three sums), 3 a coefficient for the Barrett reduction and 4
+    for each multiply by a per-coefficient or per-limb constant (twist,
+    untwist, N^-1); the tail's 25 int8 digit-plane products (2 x 128
+    operations a coefficient each) and its 9-term recombination."""
+    n, logn = x.numel(), x.shape[-1].bit_length() - 1
+    nbytes = 16 * n + sum(t.numel() * t.element_size() for t in tables)
+    bfly, int8 = n // 2, 0
+    ops = {"ntt_fwd": 6 * bfly * logn + 3 * n,
+           "ntt_inv": 6 * bfly * logn + 7 * n,
+           "ntt_fwd_head": 6 * bfly * (logn - 7) + 4 * n,
+           "ntt_inv_tailed": 6 * bfly * (logn - 7) + 7 * n,
+           "ntt_tail": 27 * n}[name]
+    if name == "ntt_tail":
+        int8 = 25 * 2 * ntt_cuda.TAIL_LANES * n
+    return bound(nbytes, ops, int8)
+
+
+def cuda_ms(fn, reps: int, inner: int = 10) -> float:
+    """Median over reps runs (CUDA events, after a warm-up) of the mean ms
+    of `inner` back-to-back calls of fn(): the queue stays ahead of the
+    card, so the host's launch time stays out of a kernel's time."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def run(reps: int, other=None) -> dict:
+    rings = {"new": Ring}
+    if other:
+        profile_ab.load_other(Path(other).resolve())
+        rings["old"] = importlib.import_module(
+            profile_ab.OTHER + ".ops.ring").Ring
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2024)
+    result = {}
+    for label, (preset, batch) in SHAPES.items():
+        rs = {name: qp_ring(preset, ring_cls=cls)
+              for name, cls in rings.items()}
+        ring = rs["new"]
+        x = torch.randint(0, 1 << 32, (*batch, ring.nlimbs, ring.n),
+                          generator=gen, dtype=torch.int64, device="cuda")
+        x_inv = x % (8 * ring.q[:, None])
+        n_polys = x.numel() >> ring.logn
+        row = {"shape": [*batch, ring.nlimbs, ring.n], "n_polys": n_polys}
+        for fwd, inp in ((True, x), (False, x_inv)):
+            kind = "fwd" if fwd else "inv"
+            var = {name: (lambda r=r: r.ntt(inp)) if fwd else
+                   (lambda r=r: r.intt(inp)) for name, r in rs.items()}
+            want = var["new"]()
+            if label == "pn15":
+                plain = (ntt_cuda.ntt_plain(inp, ring.q, ring.bar, ring.psi,
+                                            ring.psi_sh) if fwd else
+                         ntt_cuda.intt_plain(inp, ring.q, ring.bar, ring.ipsi,
+                                             ring.ipsi_sh, ring.ninv,
+                                             ring.ninv_sh))
+                if not torch.equal(want, plain):
+                    raise AssertionError(f"{label} {kind}: new != plain")
+            for name, fn in var.items():
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"{label} {kind}: {name} != new")
+            names = list(var)[::-1]     # old first
+            times = {name: [] for name in names}
+            for name in names + names[::-1]:
+                times[name].append(cuda_ms(var[name], reps))
+            b_ms, b_by = kernel_bound(
+                "ntt_" + kind, inp,
+                (ring.psi_pack, ring.q, ring.bar) if fwd else
+                (ring.ipsi_pack, ring.q, ring.bar, ring.ninv, ring.ninv_sh))
+            row[kind] = {"bound_ms": b_ms, "bound_by": b_by, "ms": times,
+                         "share": {name: b_ms / statistics.median(t)
+                                   for name, t in times.items()}}
+        result[label] = row
+    return result
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", help="root of another checkout")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_ntt needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    log = ntt_cuda.build()
+    print("ptxas: " + " | ".join(
+        ln.split("ptxas info    :")[-1].strip() for ln in log.splitlines()
+        if "registers" in ln or "spill" in ln), flush=True)
+    res = run(args.reps, args.other)
+    for label, row in res.items():
+        for kind in ("fwd", "inv"):
+            r = row[kind]
+            print(f"{label} {row['shape']} {kind}: bound {r['bound_ms']:.4f} "
+                  f"ms ({r['bound_by']}); " + ", ".join(
+                      f"{name} {[round(t, 4) for t in ts]} (share "
+                      f"{r['share'][name]:.3f})"
+                      for name, ts in r["ms"].items()), flush=True)
+    print(json.dumps({"device": smi, "ntt": res}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -39,20 +39,50 @@ def _rand(gen, shape, bound):
                          dtype=torch.int64, device="cuda") % bound
 
 
-@pytest.mark.parametrize("logn", [1, 2, 4, 9, 10, 11, 14, 15])
+def _full_args(ring):
+    """(kernel, plain) argument tuples of the forward and inverse."""
+    fwd_p = (ring.q, ring.bar, ring.psi, ring.psi_sh)
+    inv_p = (ring.q, ring.bar, ring.ipsi, ring.ipsi_sh, ring.ninv,
+             ring.ninv_sh)
+    return (fwd_p + (ring.psi_pack,), fwd_p, inv_p + (ring.ipsi_pack,),
+            inv_p)
+
+
+@pytest.mark.parametrize("logn", range(1, 16))
 def test_kernels_match_plain(gen, logn):
+    """Any-u32 forward and < 8q inverse inputs, with n_polys = 6 (not a
+    multiple of the polynomials per block below logN 12) and 1, and one
+    limb."""
     ring = _ring(logn)
+    fwd, fwd_p, inv, inv_p = _full_args(ring)
     q = ring.q[:, None]
-    fwd = (ring.q, ring.bar, ring.psi, ring.psi_sh)
-    inv = (ring.q, ring.bar, ring.ipsi, ring.ipsi_sh, ring.ninv,
-           ring.ninv_sh)
-    shape = (2, 3, ring.nlimbs, ring.n)
-    for x in (_rand(gen, shape, q), _rand(gen, shape, 1 << 32)):
-        assert torch.equal(ntt_cuda.ntt(x, *fwd), ntt_cuda.ntt_plain(x, *fwd))
-    x = _rand(gen, shape, 8 * q)
-    assert torch.equal(ntt_cuda.intt(x, *inv), ntt_cuda.intt_plain(x, *inv))
-    x = _rand(gen, shape, q)
-    assert torch.equal(ring.intt(ring.ntt(x)), x)
+    for shape in ((2, 3, ring.nlimbs, ring.n), (1, ring.nlimbs, ring.n)):
+        for x in (_rand(gen, shape, q), _rand(gen, shape, 1 << 32)):
+            assert torch.equal(ntt_cuda.ntt(x, *fwd), ntt_cuda.ntt_plain(x, *fwd_p))
+        x = _rand(gen, shape, 8 * q)
+        assert torch.equal(ntt_cuda.intt(x, *inv), ntt_cuda.intt_plain(x, *inv_p))
+        x = _rand(gen, shape, q)
+        assert torch.equal(ring.intt(ring.ntt(x)), x)
+    one = ring.take(1, 2)
+    fwd, fwd_p, inv, inv_p = _full_args(one)
+    x = _rand(gen, (5, 1, ring.n), 1 << 32)
+    assert torch.equal(ntt_cuda.ntt(x, *fwd), ntt_cuda.ntt_plain(x, *fwd_p))
+    assert torch.equal(ntt_cuda.intt(x, *inv), ntt_cuda.intt_plain(x, *inv_p))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("logn", [10, 14, 15])
+def test_kernels_extreme_inputs(gen, logn):
+    """All q - 1, all 2^32 - 1 and all 8q - 1: the lazy ranges at their
+    ends."""
+    ring = _ring(logn)
+    fwd, fwd_p, inv, inv_p = _full_args(ring)
+    q = ring.q[:, None]
+    shape = (3, ring.nlimbs, ring.n)
+    for fill in (q - 1, torch.full_like(q, (1 << 32) - 1), 8 * q - 1):
+        x = fill.expand(shape).contiguous()
+        assert torch.equal(ntt_cuda.ntt(x, *fwd), ntt_cuda.ntt_plain(x, *fwd_p))
+        assert torch.equal(ntt_cuda.intt(x, *inv), ntt_cuda.intt_plain(x, *inv_p))
     torch.cuda.synchronize()
 
 
@@ -68,13 +98,19 @@ def test_launch_counters(gen):
 def test_wrapper_raises_on_cuda(gen):
     ring = _ring(10)
     x = _rand(gen, (ring.nlimbs, ring.n), ring.q[:, None])
+    fwd = _full_args(ring)[0][1:]
     with pytest.raises(TypeError):
-        ntt_cuda.ntt(x.to(torch.int32), ring.q, ring.bar, ring.psi,
-                     ring.psi_sh)
+        ntt_cuda.ntt(x.to(torch.int32), ring.q, *fwd)
     with pytest.raises(ValueError):
-        ntt_cuda.ntt(x.t(), ring.q, ring.bar, ring.psi, ring.psi_sh)
+        ntt_cuda.ntt(x.t(), ring.q, *fwd)
     with pytest.raises(ValueError):
-        ntt_cuda.ntt(x, ring.q.cpu(), ring.bar, ring.psi, ring.psi_sh)
+        ntt_cuda.ntt(x, ring.q.cpu(), *fwd)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(ring.psi_pack.numel() + 1, dtype=torch.int64,
+                           device="cuda")
+        skewed = flat[1:].view(ring.psi_pack.shape)
+        skewed.copy_(ring.psi_pack)
+        ntt_cuda.ntt(x, ring.q, *fwd[:-1], skewed)
     big = _ring(16, limbs=1)
     with pytest.raises(ValueError):
         big.ntt(torch.zeros((1, big.n), dtype=torch.int64, device="cuda"))
@@ -96,9 +132,7 @@ def test_split_kernels_match_plain(gen, logn):
     t, head, inv = _split_args(ring)
     q = ring.q[:, None]
     shape = (2, 3, ring.nlimbs, ring.n)
-    fwd_t = (ring.q, ring.bar, ring.psi, ring.psi_sh)
-    inv_t = (ring.q, ring.bar, ring.ipsi, ring.ipsi_sh, ring.ninv,
-             ring.ninv_sh)
+    fwd_t, _, inv_t, _ = _full_args(ring)
     x = _rand(gen, shape, 1 << 32)
     h = ntt_cuda.ntt_head(x, *head)
     assert torch.equal(h, ntt_cuda.ntt_head_plain(x, *head))
