@@ -6,8 +6,9 @@
 Phases, one line each, then two JSON lines:
   1. device   torch / CUDA versions and the card, plus nvidia-smi's
               "name, power.limit" line;
-  2. build    nvcc builds csrc/ntt.cu and csrc/ntt_tail.cu (sm_90a) from
-              the checkout, one compiler per source, started together;
+  2. build    nvcc builds csrc/ntt.cu, csrc/ntt_tail.cu and
+              csrc/ntt_variant.cu (sm_90a) from the checkout, one compiler
+              per source, started together;
               ptxas's spills and registers per kernel;
   3. kernels  each of the five NTT kernels against its plain PyTorch
               version on the card, bit for bit, at the PN15QP880 QP moduli
@@ -22,6 +23,17 @@ Phases, one line each, then two JSON lines:
               of 10 back-to-back launches (`ms_mean10`, without the host's
               launch time), each beside its bound
               (profile_ntt.kernel_bound) and share of it;
+  3b. probe   the NTT cost probe's variant kernel (csrc/ntt_variant.cu)
+              against its plain version on the card, bit for bit, in every
+              setting it is built for and both block orders: at the TPU
+              probe's shape (4 x 32 x 2^15, ntt_primes(15, 28.9, 32)), at
+              logN 10 and at the CNN's logN 14 QP moduli (8 x 18); every
+              stage against Ring.ntt and logN - 7 stages against the head
+              kernel; its times (full setting, 4 x 32 x 2^15) beside its
+              bound and its plain version's; then, counters at 0, the
+              probe's path (mkhe_tpu_torch.ntt_probe.probe: its six rows,
+              checked and timed, and the ntt_fwd row) at 4 x 32 x 2^15,
+              which must launch the kernel;
   4. mult     the CKKS main path: PN15QP880, 4 parties, keys from
               torch.Generator on the card; three requests of fresh
               encryptions -> Evaluator.mul_relin_new (mult + relin +
@@ -52,9 +64,12 @@ Phases, one line each, then two JSON lines:
               the conjugate; the NTT launch counters must grow; the
               key-switched rotations of the requests are counted
               (profile_cnn.count_rotations).
-Then {"kernels": [...]} (launches summed over phases 4-6; times, bounds
-and plain times, all single launches, and ms_mean10 of phase 3 at logN
-15) and, last, {"ok": true, "device": {...}}.
+Then {"kernels": [...]} (launches summed over phases 4-6, ntt_variant's
+from phase 3b's probe run: the wrapper's launches, those captured into
+its CUDA graphs (profile_ntt.graph_ms) included and the graphs' replays,
+which run without the wrapper, not; times, bounds and plain times, all single
+launches, and ms_mean10 of phase 3 at logN 15, ntt_variant's of phase 3b)
+and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
 fails in phase 1.
@@ -71,8 +86,8 @@ import time
 import numpy as np
 import torch
 
-from mkhe_tpu_torch import (config, mkbfv, mkckks, mkrlwe, profile_cnn,
-                            profile_ntt)
+from mkhe_tpu_torch import (config, mkbfv, mkckks, mkrlwe, ntt_probe,
+                            profile_cnn, profile_ntt)
 from mkhe_tpu_torch.models import cnn
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
@@ -82,6 +97,7 @@ BATCH = 8
 SEED = 2024
 NTT_CU = "mkhe_tpu_torch/csrc/ntt.cu"
 TAIL_CU = "mkhe_tpu_torch/csrc/ntt_tail.cu"
+VARIANT_CU = "mkhe_tpu_torch/csrc/ntt_variant.cu"
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
     ("ntt_inv", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
@@ -89,7 +105,9 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd_head", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:102"),
     ("ntt_tail", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:266"),
     ("ntt_inv_tailed", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:175"),
+    ("ntt_variant", VARIANT_CU, "benchmarks/ntt_probe.py:35"),
 )
+MAIN = KERNELS[:5]   # the kernels of phases 4-6
 
 
 def phase_device() -> dict:
@@ -114,13 +132,8 @@ def phase_build() -> None:
     log = ntt_cuda.build()
     ntt_cuda.load()
     secs = time.perf_counter() - t0
-    # per kernel: its name, then its spills, then its registers
-    ptxas = [ln.split("'")[1][-45:] if "Compiling entry" in ln
-             else ln.split("ptxas info    :")[-1].strip()
-             for ln in log.splitlines()
-             if "Compiling entry" in ln or "spill" in ln or "registers" in ln]
     print(f"[2 build] {secs:.2f} s -> {ntt_cuda.LIB_PATH.name}; "
-          f"ptxas: {' | '.join(ptxas)}", flush=True)
+          f"ptxas: {' | '.join(ntt_cuda.ptxas_lines(log))}", flush=True)
 
 
 def _rand(gen, shape, bound):
@@ -140,7 +153,7 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
     (batch 8 of the 32 QP limbs) and their bounds."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err = {name: 0 for name, _, _ in KERNELS}
+    err = {name: 0 for name, _, _ in MAIN}
     mism = comp_mism = 0
     times = {"15": {}, "14": {}, "digits": {}}
     ring10 = Ring.create(ring15.moduli, 10)
@@ -239,7 +252,82 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
                              f"{mism} values, from the full kernels and in "
                              f"round trips in {comp_mism}")
     return {name: dict(max_abs_err=err[name], **times["15"][name])
-            for name, _, _ in KERNELS}
+            for name, _, _ in MAIN}
+
+
+def phase_probe(ring14: Ring) -> dict:
+    """The variant kernel against its plain version in every setting it is
+    built for and both block orders, at the TPU probe's shape, logN 10 and
+    the CNN's logN 14; the cross-checks; its times; then the probe's path
+    with the counters at 0. Returns its kernel-line entry."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31)
+    ring15, batch = ntt_probe.shape_ring("probe", "cuda")
+    ring10 = Ring.create(ring15.moduli, 10)
+    mism = comp_mism = err = 0
+    for ring, b in ((ring15, batch), (ring10, batch), (ring14, (BATCH,))):
+        t = ntt_probe.variant_tables(ring)
+        x = _rand(gen, (*b, ring.nlimbs, ring.n), 1 << 32)
+        x[0, :, :64] = (1 << 32) - 1
+        for stages, exchange, mul in sorted(
+                ntt_cuda.variant_settings(ring.logn)):
+            want = ntt_cuda.ntt_variant_plain(
+                x, t, stages=stages, exchange=exchange, mul=mul)
+            for order in ntt_cuda.ORDERS:
+                got = ntt_cuda.ntt_variant(x, t, stages=stages,
+                                           exchange=exchange, mul=mul,
+                                           order=order)
+                torch.cuda.synchronize()
+                mism += int((got != want).sum())
+                err = max(err, int((got - want).abs().max()))
+        pairs = ((ntt_cuda.ntt_variant(x, t, stages=ring.logn),
+                  ring.ntt(x)),
+                 (ntt_cuda.ntt_variant(x, t, stages=ring.logn - 7),
+                  ntt_cuda.ntt_head(x, t.q, t.twist, t.twist_sh, t.wpack,
+                                    t.wpack_sh)))
+        torch.cuda.synchronize()
+        comp_mism += sum(int((got != want).sum()) for got, want in pairs)
+    if mism or comp_mism:
+        raise AssertionError(f"ntt_variant differs from its plain version in"
+                             f" {mism} values, from Ring.ntt / ntt_head in "
+                             f"{comp_mism}")
+    t = ntt_probe.variant_tables(ring15)
+    x = _rand(gen, (*batch, ring15.nlimbs, ring15.n), 1 << 32)
+    n = ring15.logn
+    b_ms, b_by = profile_ntt.kernel_bound(
+        "ntt_variant", x, ntt_probe.variant_reads(t, n, True), n)
+    stats = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ntt_cuda.ntt_variant(x, t, stages=n),
+                   ntt_probe.REPS, 1),
+        ms_mean10=cuda_ms(lambda: ntt_cuda.ntt_variant(x, t, stages=n),
+                          ntt_probe.REPS),
+        bound_ms=b_ms, bound_by=b_by,
+        plain_ms=cuda_ms(lambda: ntt_cuda.ntt_variant_plain(
+            x, t, stages=n), 5, 1))
+    ntt_cuda.reset_counters()
+    res = ntt_probe.probe(ring15, batch, timed=True)
+    launches = ntt_cuda.counters()["ntt_variant"]
+    if launches < 1:
+        raise AssertionError("the probe launched no variant kernel")
+    d = res["derived"]
+    print(f"[3b probe] mismatches {mism} kernel vs plain (every built "
+          f"setting, both block orders, at {batch[0]} x {ring15.nlimbs} x "
+          f"2^15, logN 10 and logN 14 x {ring14.nlimbs} limbs), {comp_mism} "
+          f"full vs Ring.ntt and logN - 7 stages vs ntt_head; full at "
+          f"{res['shape']}: {stats['ms']:.4f} ms, mean of 10 "
+          f"{stats['ms_mean10']:.4f} (bound {b_ms:.4f}, "
+          f"{b_ms / stats['ms']:.1%} of it; plain {stats['plain_ms']:.4f}); "
+          f"probe rows (mean of 10 / CUDA graph): " + ", ".join(
+              f"{name} {r['ms']:.4f} / {r['graph_ms']:.4f}"
+              for name, r in res["rows"].items())
+          + f"; from the graph times: slope {d['slope_ms_per_stage']:.5f} "
+          f"ms/stage, twiddle share "
+          f"{d['twiddle_share']:.1%}, exchange share "
+          f"{d['exchange_share']:.1%}, swap grid - full "
+          f"{d['swap_minus_full_ms']:+.4f} ms; launches {launches}",
+          flush=True)
+    return dict(stats, launches=launches)
 
 
 def phase_mult(params) -> dict:
@@ -495,13 +583,15 @@ def main() -> None:
     params = mkckks.PN15QP880("cuda")
     params_cnn = mkckks.PN14QP433_CNN("cuda")
     stats = phase_kernels(params.rlwe.ring_qp, params_cnn.rlwe.ring_qp)
+    probe = phase_probe(params_cnn.rlwe.ring_qp)
     phases = (phase_mult(params), phase_bfv(mkbfv.PN15QP880("cuda")),
               phase_cnn(params_cnn))
-    launches = {name: sum(p[name] for p in phases) for name, _, _ in KERNELS}
+    for name, _, _ in MAIN:
+        stats[name]["launches"] = sum(p[name] for p in phases)
+    stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches[name], **stats[name],
-         "library_ms": None}
+         "replaces": replaces, **stats[name], "library_ms": None}
         for name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

@@ -24,6 +24,13 @@ _inv_kernel(tail_done=True) and the int8 tail map _tail_apply
 (ntt_pallas.py:80-104, 159-175, 266-312): `ntt_head`, `tail` and
 `intt_tailed`.
 
+The kernel of csrc/ntt_variant.cu replaces the NTT cost probe's
+benchmarks/ntt_probe.py::_variant_kernel: `ntt_variant`, a forward NTT in
+the split's decimation with its stage count, exchange and twiddle
+multiplies switchable, built on the full kernels' passes, geometry and
+packed twiddles (natural order, `pack_natural`), for the settings of
+`variant_settings`; mkhe_tpu_torch.ntt_probe drives it.
+
 Every wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version (`ntt_plain` / `intt_plain`, the int64 transliteration of
 the JAX package's jnp path, mkhe_tpu/ops/ring.py:377-440; `ntt_head_plain`
@@ -66,6 +73,9 @@ TAIL_LANES = 128
 TAIL_DIGITS = 5
 TAIL_DIGIT_BITS = 7
 
+VARIANT_LOGNS = (10, 14, 15)  # the logN the variant kernel is built for
+ORDERS = ("poly", "limb")     # the variant's block orders
+
 # Kernel launches since the last reset_counters(); only a launch of the
 # CUDA kernel counts, never a call of the plain version.
 fwd_launches = 0
@@ -73,20 +83,23 @@ inv_launches = 0
 head_launches = 0
 tail_launches = 0
 inv_tailed_launches = 0
+variant_launches = 0
 
 
 def reset_counters() -> None:
     global fwd_launches, inv_launches, head_launches, tail_launches
-    global inv_tailed_launches
+    global inv_tailed_launches, variant_launches
     fwd_launches = inv_launches = 0
     head_launches = tail_launches = inv_tailed_launches = 0
+    variant_launches = 0
 
 
 def counters() -> dict:
     """Launches of each kernel since the last reset_counters()."""
     return {"ntt_fwd": fwd_launches, "ntt_inv": inv_launches,
             "ntt_fwd_head": head_launches, "ntt_tail": tail_launches,
-            "ntt_inv_tailed": inv_tailed_launches}
+            "ntt_inv_tailed": inv_tailed_launches,
+            "ntt_variant": variant_launches}
 
 
 # ----------------------------------------------------------------------------
@@ -151,6 +164,15 @@ def build() -> str:
     return "".join(logs)
 
 
+def ptxas_lines(log: str) -> list:
+    """Each kernel's name (its last 45 characters), then its spills and
+    registers, from build()'s compiler output."""
+    return [ln.split("'")[1][-45:] if "Compiling entry" in ln
+            else ln.split("ptxas info    :")[-1].strip()
+            for ln in log.splitlines()
+            if "Compiling entry" in ln or "spill" in ln or "registers" in ln]
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
@@ -167,6 +189,8 @@ def load() -> ctypes.CDLL:
     lib.mkhe_ntt_tail.restype = ci
     lib.mkhe_ntt_inv_tailed.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.mkhe_ntt_inv_tailed.restype = ci
+    lib.mkhe_ntt_variant.argtypes = [vp] * 5 + [ci] * 11 + [vp]
+    lib.mkhe_ntt_variant.restype = ci
     return lib
 
 
@@ -251,21 +275,36 @@ def twiddle_order(logn: int, fwd: bool) -> np.ndarray:
     return order
 
 
-def pack_twiddles(w: np.ndarray, w_sh: np.ndarray, moduli,
-                  fwd: bool) -> np.ndarray:
-    """The full kernels' twiddle table from (L, N) tables w, w_sh of the L
-    moduli: w | w_sh << 32 as int64, so one 8-byte load gives a twiddle and
-    its Shoup quotient (both < 2^32), in twiddle_order. Raises unless every
-    modulus is below MAX_Q, so that the kernels' lazy values (< 4q) fit in
-    32 bits: every packed table, and so every launch, has passed this
-    check."""
+def _pack(w: np.ndarray, w_sh: np.ndarray, moduli) -> np.ndarray:
+    """w | w_sh << 32 as uint64 of (L, N) tables w, w_sh of the L moduli.
+    Raises unless every modulus is below MAX_Q, so that the kernels' lazy
+    values (< 4q) fit in 32 bits: every packed table, and so every launch,
+    has passed this check."""
     bad = [q for q in moduli if not 2 <= q < MAX_Q]
     if bad:
         raise ValueError(f"the NTT kernels take moduli 2 <= q < 2^30, got "
                          f"{bad}")
+    return w.astype(np.uint64) | (w_sh.astype(np.uint64) << np.uint64(32))
+
+
+def pack_twiddles(w: np.ndarray, w_sh: np.ndarray, moduli,
+                  fwd: bool) -> np.ndarray:
+    """The full kernels' twiddle table from (L, N) tables w, w_sh of the L
+    moduli: w | w_sh << 32 as int64, so one 8-byte load gives a twiddle and
+    its Shoup quotient (both < 2^32), in twiddle_order (`_pack` raises for a
+    modulus of 2^30 or more)."""
     order = twiddle_order(w.shape[-1].bit_length() - 1, fwd)
-    packed = w.astype(np.uint64) | (w_sh.astype(np.uint64) << np.uint64(32))
-    return np.ascontiguousarray(packed[..., order]).view(np.int64)
+    return np.ascontiguousarray(_pack(w, w_sh, moduli)[..., order]
+                                ).view(np.int64)
+
+
+def pack_natural(w: torch.Tensor, w_sh: torch.Tensor, moduli
+                 ) -> torch.Tensor:
+    """The variant kernel's tables (twist, wpack): w | w_sh << 32 as an
+    int64 tensor on w's device, in natural order (`_pack` raises for a
+    modulus of 2^30 or more)."""
+    packed = _pack(w.cpu().numpy(), w_sh.cpu().numpy(), moduli)
+    return torch.from_numpy(packed.view(np.int64)).to(w.device)
 
 
 def unpack_twiddles(pack: torch.Tensor, fwd: bool):
@@ -440,6 +479,87 @@ def tail(x, q, r_inv, mat, pw):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def variant_settings(logn: int) -> frozenset:
+    """The (stages, exchange, mul) settings the variant kernel is built for
+    at logN (csrc/ntt_variant.cu::find; none outside VARIANT_LOGNS): the
+    probe's rows (every stage, 8 and 1 stage, every stage without twiddle
+    multiplies, every stage without exchange) and logN - 7 stages, the
+    split head's."""
+    if logn not in VARIANT_LOGNS:
+        return frozenset()
+    return frozenset({(logn, True, True), (8, True, True), (1, True, True),
+                      (logn - 7, True, True), (logn, True, False),
+                      (logn, False, True)})
+
+
+def variant_poly_order(n_polys: int, L: int, order: str) -> np.ndarray:
+    """The polynomial that block slot r of the variant kernel works on
+    (csrc/ntt_variant.cu::poly_of), for the tests: r itself in "poly"
+    (polynomial-major) order; (r % B) * L + r // B, B = n_polys / L, in
+    "limb" (limb-major) order, so that consecutive blocks take the B
+    polynomials of one limb and share its tables."""
+    r = np.arange(n_polys)
+    if order == "poly":
+        return r
+    b = n_polys // L
+    return (r % b) * L + r // b
+
+
+@dataclasses.dataclass(frozen=True)
+class VariantTables:
+    """What ntt_variant reads of a ring: q, the split's twist and wpack
+    tables (natural, for the plain version) and their packed forms
+    (`pack_natural`, for the kernel)."""
+    q: torch.Tensor
+    twist: torch.Tensor
+    twist_sh: torch.Tensor
+    wpack: torch.Tensor
+    wpack_sh: torch.Tensor
+    twist_pack: torch.Tensor
+    wpack_pack: torch.Tensor
+
+
+def ntt_variant(x, t: VariantTables, *, stages: int, exchange: bool = True,
+                mul: bool = True, order: str = "poly"):
+    """The NTT cost probe's transform over (..., L, N), any u32 input ->
+    canonical: twist by psi^j, then `stages` DIF stages (h = N/2, N/4, ...)
+    on the split's wpack table, with the exchange between a butterfly's
+    two values (off: each value is its own partner) and the twiddle
+    multiplies (off: none) switchable. With every stage it is Ring.ntt;
+    with logN - 7 it is ntt_head. Kernel on a CUDA tensor (it reads
+    t.twist_pack and t.wpack_pack; blocks in `order`, ORDERS; the settings
+    of `variant_settings` only), plain version on a CPU tensor (it reads
+    the natural tables; the order changes nothing)."""
+    global variant_launches
+    shape = _check(x, (t.twist, t.twist_sh, t.wpack, t.wpack_sh,
+                       t.twist_pack, t.wpack_pack), (t.q,))
+    logn = shape[2]
+    exchange, mul = bool(exchange), bool(mul)
+    if not 1 <= stages <= logn:
+        raise ValueError(f"stages = {stages}: 1 <= stages <= logN = {logn}")
+    if order not in ORDERS:
+        raise ValueError(f"order {order!r} not in {ORDERS}")
+    if not _device_route(x):
+        return ntt_variant_plain(x, t, stages=stages, exchange=exchange,
+                                 mul=mul)
+    if (stages, exchange, mul) not in variant_settings(logn):
+        raise ValueError(f"the variant kernel is not built for stages = "
+                         f"{stages}, exchange = {exchange}, mul = {mul} at "
+                         f"logN {logn} (variant_settings)")
+    if t.wpack_pack.data_ptr() % 16:
+        raise ValueError("packed wpack table: the kernel reads 16-byte "
+                         "pairs, so it must be 16-byte aligned")
+    geom = geometry(logn, shape[0])
+    out = _launch(load().mkhe_ntt_variant, x, (t.twist_pack, t.wpack_pack,
+                                                t.q),
+                  shape, (stages, int(exchange), int(mul),
+                          ORDERS.index(order), geom.log_polys, geom.blocks,
+                          geom.threads, geom.smem if exchange else 0))
+    variant_launches += 1
+    return out
+
+
 def intt_tailed(x, q, bar, iwpack, iwpack_sh, untwist, untwist_sh):
     """Rest of the split inverse NTT after `tail` with the inverse map:
     the DIT stages with half-block h = 128 .. N/2, then the untwist by
@@ -530,6 +650,31 @@ def ntt_head_plain(x, q, twist, twist_sh, wpack, wpack_sh):
                          mm.shoup_mul(mm.sub_mod(top, bot, qq), w, wsh, qq)],
                         dim=-2).reshape(x.shape)
         h //= 2
+    return a
+
+
+def ntt_variant_plain(x, t: VariantTables, *, stages: int,
+                      exchange: bool = True, mul: bool = True):
+    """benchmarks/ntt_probe.py::_variant_kernel (:35-63), all canonical:
+    twist, then for s = 1 .. stages (h = N >> s) every 2h-block's top T and
+    bottom B become T + B and wpack[N - 2h + l] (T - B), or with the
+    exchange off T + T and wpack[N - 2h + l] (B - B); without the multiply,
+    or at h = 1, the bottom is the difference alone. The probe's lazy
+    values stay below 2q and end in csub(a, q), so its output is this
+    canonical one."""
+    n = x.shape[-1]
+    a = mm.shoup_mul(x, t.twist, t.twist_sh, t.q[:, None])
+    qq = t.q[:, None, None]
+    for s in range(1, stages + 1):
+        h = n >> s
+        top, bot = _stage_view(a, h)
+        up, down = (bot, top) if exchange else (top, bot)
+        diff = mm.sub_mod(down, bot, qq)
+        if mul and h > 1:
+            diff = mm.shoup_mul(diff, t.wpack[:, None, n - 2 * h:n - h],
+                                t.wpack_sh[:, None, n - 2 * h:n - h], qq)
+        a = torch.stack([mm.add_mod(top, up, qq), diff],
+                        dim=-2).reshape(x.shape)
     return a
 
 

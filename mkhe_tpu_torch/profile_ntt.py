@@ -67,22 +67,32 @@ def bound(nbytes: int, int32_ops: int = 0, int8_ops: int = 0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_bound(name: str, x, tables):
+def kernel_bound(name: str, x, tables, stages: int = 0, mul: bool = True):
     """Bound of one launch of an NTT kernel on x (..., L, N) with its
     tables: x read once and the output written once (int64), every table
     and constant read once; 6 int32 operations a butterfly (three
     products, three sums), 3 a coefficient for the Barrett reduction and 4
     for each multiply by a per-coefficient or per-limb constant (twist,
     untwist, N^-1); the tail's 25 int8 digit-plane products (2 x 128
-    operations a coefficient each) and its 9-term recombination."""
+    operations a coefficient each) and its 9-term recombination.
+    "ntt_variant" (the probe's transform, `stages` DIF stages, twiddle
+    multiplies if `mul`): 6 a butterfly of a stage with a multiply (every
+    stage but h = 1 when mul), 3 (the sums) a butterfly of one without, and
+    4 a coefficient for the twist, whether the exchange is on or off (the
+    same function of the same inputs); its tables are what it reads: q,
+    the packed twist and the packed wpack entries of the stages that
+    multiply (ntt_probe.variant_reads)."""
     n, logn = x.numel(), x.shape[-1].bit_length() - 1
     nbytes = 16 * n + sum(t.numel() * t.element_size() for t in tables)
     bfly, int8 = n // 2, 0
+    muls = (stages - (stages == logn)) if mul else 0
     ops = {"ntt_fwd": 6 * bfly * logn + 3 * n,
            "ntt_inv": 6 * bfly * logn + 7 * n,
            "ntt_fwd_head": 6 * bfly * (logn - 7) + 4 * n,
            "ntt_inv_tailed": 6 * bfly * (logn - 7) + 7 * n,
-           "ntt_tail": 27 * n}[name]
+           "ntt_tail": 27 * n,
+           "ntt_variant": 6 * bfly * muls + 3 * bfly * (stages - muls)
+           + 4 * n}[name]
     if name == "ntt_tail":
         int8 = 25 * 2 * ntt_cuda.TAIL_LANES * n
     return bound(nbytes, ops, int8)
@@ -100,6 +110,30 @@ def cuda_ms(fn, reps: int, inner: int = 10) -> float:
         start.record()
         for _ in range(inner):
             fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int, inner: int = 10) -> float:
+    """Median over reps replays (CUDA events) of a CUDA graph of `inner`
+    calls of fn(), per call: the device's time alone, also where a call's
+    host work outlasts its kernel and cuda_ms would time the host. (A
+    wrapper's launch counter sees the captured calls, not the replays.)"""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
@@ -166,10 +200,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    log = ntt_cuda.build()
-    print("ptxas: " + " | ".join(
-        ln.split("ptxas info    :")[-1].strip() for ln in log.splitlines()
-        if "registers" in ln or "spill" in ln), flush=True)
+    print("ptxas: " + " | ".join(ntt_cuda.ptxas_lines(ntt_cuda.build())),
+          flush=True)
     res = run(args.reps, args.other)
     for label, row in res.items():
         for kind in ("fwd", "inv"):

@@ -1,6 +1,7 @@
-"""The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, and the split NTT's
-head, tail and tailed inverse in csrc/ntt_tail.cu) against their plain
-PyTorch versions on the card, bit for bit; and rotation, conjugation and
+"""The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, the split NTT's head,
+tail and tailed inverse in csrc/ntt_tail.cu, and the NTT cost probe's
+variant in csrc/ntt_variant.cu) against their plain PyTorch versions on
+the card, bit for bit; and rotation, conjugation and
 the CNN pipeline on the card against the same calls on the CPU. Needs an
 NVIDIA GPU and nvcc; without a card every test skips. This file imports
 no JAX, so it also runs on a machine without it:
@@ -8,9 +9,12 @@ no JAX, so it also runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py -q -o addopts="" --noconftest
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from mkhe_tpu_torch import ntt_probe
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.primes import ntt_primes
 from mkhe_tpu_torch.ops.ring import Ring
@@ -167,7 +171,71 @@ def test_split_routing_and_counters(gen):
     assert torch.equal(got, want) and torch.equal(back, x)
     assert ntt_cuda.counters() == {"ntt_fwd": 0, "ntt_inv": 0,
                                    "ntt_fwd_head": 1, "ntt_tail": 2,
-                                   "ntt_inv_tailed": 1}
+                                   "ntt_inv_tailed": 1, "ntt_variant": 0}
+
+
+@pytest.mark.parametrize("logn", ntt_cuda.VARIANT_LOGNS)
+def test_variant_kernel_matches_plain(gen, logn):
+    """Every setting the variant kernel is built for, in both block
+    orders, on any-u32 input with 2^32 - 1 extremes, 9 polynomials (the
+    last block short at logN 10); every stage against Ring.ntt and logN - 7
+    stages against the head kernel."""
+    ring = _ring(logn)
+    t = ntt_probe.variant_tables(ring)
+    x = _rand(gen, (3, ring.nlimbs, ring.n), 1 << 32)
+    x[0, :, :64] = (1 << 32) - 1
+    for stages, exchange, mul in sorted(ntt_cuda.variant_settings(logn)):
+        want = ntt_cuda.ntt_variant_plain(x, t, stages=stages,
+                                          exchange=exchange, mul=mul)
+        for order in ntt_cuda.ORDERS:
+            got = ntt_cuda.ntt_variant(x, t, stages=stages,
+                                       exchange=exchange, mul=mul,
+                                       order=order)
+            assert torch.equal(got, want), (stages, exchange, mul, order)
+    assert torch.equal(ntt_cuda.ntt_variant(x, t, stages=logn),
+                       ring.ntt(x))
+    assert torch.equal(ntt_cuda.ntt_variant(x, t, stages=logn - 7),
+                       ntt_cuda.ntt_head(x, t.q, t.twist, t.twist_sh,
+                                         t.wpack, t.wpack_sh))
+    torch.cuda.synchronize()
+
+
+def test_variant_wrapper_raises_on_cuda(gen):
+    """Settings and logN the kernel is not built for, malformed or
+    misaligned tables, a table on another device and moduli of 2^30 or
+    more raise; only kernel launches count."""
+    ring = _ring(14)
+    t = ntt_probe.variant_tables(ring)
+    x = _rand(gen, (2, ring.nlimbs, ring.n), 1 << 32)
+    with pytest.raises(ValueError, match="not built"):
+        ntt_cuda.ntt_variant(x, t, stages=5)
+    small = _ring(12)
+    ts = ntt_probe.variant_tables(small)
+    with pytest.raises(ValueError, match="not built"):
+        ntt_cuda.ntt_variant(_rand(gen, (small.nlimbs, small.n), 1 << 32),
+                             ts, stages=12)
+    with pytest.raises(ValueError):
+        ntt_cuda.ntt_variant(x, dataclasses.replace(
+            t, wpack_pack=t.wpack_pack[:, :-1].clone()), stages=14)
+    with pytest.raises(ValueError):
+        ntt_cuda.ntt_variant(x, dataclasses.replace(t, q=t.q.cpu()),
+                             stages=14)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(t.wpack_pack.numel() + 1, dtype=torch.int64,
+                           device="cuda")
+        skewed = flat[1:].view(t.wpack_pack.shape)
+        skewed.copy_(t.wpack_pack)
+        ntt_cuda.ntt_variant(x, dataclasses.replace(t, wpack_pack=skewed),
+                             stages=14)
+    with pytest.raises(ValueError, match="2\\^30"):
+        ntt_cuda.pack_natural(t.wpack, t.wpack_sh,
+                              ring.moduli[:-1] + ((1 << 30) + 3,))
+    ntt_cuda.reset_counters()
+    ntt_cuda.ntt_variant(x, t, stages=14)
+    ntt_cuda.ntt_variant(x, t, stages=14, exchange=False)
+    ntt_cuda.ntt_variant_plain(x, t, stages=14)
+    assert ntt_cuda.counters()["ntt_variant"] == 2
+    torch.cuda.synchronize()
 
 
 # ----------------------------------------------------------------------------

@@ -291,7 +291,8 @@ def test_port_imports_no_jax():
             "import mkhe_tpu_torch, mkhe_tpu_torch.mkckks, "
             "mkhe_tpu_torch.mkbfv, mkhe_tpu_torch.convert, "
             "mkhe_tpu_torch.models, mkhe_tpu_torch.profile_cnn, "
-            "mkhe_tpu_torch.profile_ntt, mkhe_tpu_torch.profile_ab\n"
+            "mkhe_tpu_torch.profile_ntt, mkhe_tpu_torch.profile_ab, "
+            "mkhe_tpu_torch.ntt_probe\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'mkhe_tpu'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
