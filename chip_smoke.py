@@ -6,22 +6,25 @@
 Phases, one line each, then two JSON lines:
   1. device   torch / CUDA versions and the card, plus nvidia-smi's
               "name, power.limit" line;
-  2. build    nvcc builds csrc/ntt.cu, csrc/ntt_tail.cu and
-              csrc/ntt_variant.cu (sm_90a) from the checkout, one compiler
-              per source, started together;
+  2. build    nvcc builds csrc/ntt.cu, csrc/ntt_split.cu, csrc/ntt_tail.cu
+              and csrc/ntt_variant.cu (sm_90a) from the checkout, one
+              compiler per source, started together;
               ptxas's spills and registers per kernel;
-  3. kernels  each of the five NTT kernels against its plain PyTorch
-              version on the card, bit for bit, at the PN15QP880 QP moduli
-              (32 limbs, N = 2^15, batch 8) and again at logN = 10, with
-              any-u32 and < 8q inputs; ntt_fwd and ntt_inv also at the
-              CNN's PN14QP433_CNN QP moduli (18 limbs, N = 2^14, batch 8)
-              and at the 4-party mult's digit launch (4 x 14 digits x 32
-              QP limbs x 2^15); head + tail against the full forward
-              kernel and tail + tailed inverse against the full inverse
-              kernel; round trips; median times from CUDA events of single
-              launches (`ms`, as in the earlier smoke runs) and of the mean
-              of 10 back-to-back launches (`ms_mean10`, without the host's
-              launch time), each beside its bound
+  3. kernels  the NTT kernels against their plain PyTorch versions on the
+              card, bit for bit, at the PN15QP880 QP moduli (32 limbs,
+              N = 2^15, batch 8), at logN = 10 and at the CNN's
+              PN14QP433_CNN QP moduli (18 limbs, N = 2^14, batch 8), with
+              canonical, any-u32 and < 8q inputs: ntt_fwd, ntt_inv, the
+              split kernel (csrc/ntt_split.cu) in its three modes (the
+              fused forward ntt_split_fwd, the tail with either map, the
+              head) and the tailed inverse; ntt_fwd and ntt_inv also at
+              the 4-party mult's digit launch (4 x 14 digits x 32 QP limbs
+              x 2^15); the fused forward and head + tail against the full
+              forward kernel, tail + tailed inverse against the full
+              inverse kernel; round trips; median times from CUDA events
+              of single launches (`ms`, as in the earlier smoke runs) and
+              of the mean of 10 back-to-back launches (`ms_mean10`,
+              without the host's launch time), each beside its bound
               (profile_ntt.kernel_bound) and share of it;
   3b. probe   the NTT cost probe's variant kernel (csrc/ntt_variant.cu)
               against its plain version on the card, bit for bit, in every
@@ -29,7 +32,8 @@ Phases, one line each, then two JSON lines:
               probe's shape (4 x 32 x 2^15, ntt_primes(15, 28.9, 32)), at
               logN 10 and at the CNN's logN 14 QP moduli (8 x 18); every
               stage against Ring.ntt and logN - 7 stages against the head
-              kernel; its times (full setting, 4 x 32 x 2^15) beside its
+              kernel's head mode; its times (full setting, 4 x 32 x 2^15)
+              beside its
               bound and its plain version's; then, counters at 0, the
               probe's path (mkhe_tpu_torch.ntt_probe.probe: its six rows,
               checked and timed, and the ntt_fwd row) at 4 x 32 x 2^15,
@@ -46,9 +50,11 @@ Phases, one line each, then two JSON lines:
               and, between them, one 2-party request (user0 x user1) of
               fresh encryptions -> Evaluator.mul_relin_new -> decrypt,
               each exactly equal to the plaintext product mod t; the
-              split's launch counters must grow and the full kernels' stay
-              at 0; the last 4-party mult again with the switch off, off
-              and on must give the same ciphertext bit for bit;
+              split's launch counters (the fused forward, the tail, the
+              tailed inverse) must grow and the full kernels' and the
+              head's stay at 0; the last 4-party mult again with the
+              switch off, off and on must give the same ciphertext bit for
+              bit;
   6. cnn      the two-party encrypted MNIST CNN (models/cnn.py, REF
               layout) at PN14QP433_CNN: CRS and keys (key pairs,
               relinearization, rotation keys for REF.extra_rots and the
@@ -96,14 +102,18 @@ from mkhe_tpu_torch.profile_ntt import cuda_ms
 BATCH = 8
 SEED = 2024
 NTT_CU = "mkhe_tpu_torch/csrc/ntt.cu"
+SPLIT_CU = "mkhe_tpu_torch/csrc/ntt_split.cu"
 TAIL_CU = "mkhe_tpu_torch/csrc/ntt_tail.cu"
 VARIANT_CU = "mkhe_tpu_torch/csrc/ntt_variant.cu"
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
     ("ntt_inv", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
-    # _fwd_kernel(head_only=True), _tail_apply, _inv_kernel(tail_done=True)
-    ("ntt_fwd_head", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:102"),
-    ("ntt_tail", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:266"),
+    # the split kernel's fused forward: _fwd_kernel(head_only=True) (:102)
+    # and _tail_apply (:266) in one launch
+    ("ntt_split_fwd", SPLIT_CU, "mkhe_tpu/ops/ntt_pallas.py:102"),
+    # its tail mode, the split inverse's first launch: _tail_apply
+    ("ntt_tail", SPLIT_CU, "mkhe_tpu/ops/ntt_pallas.py:266"),
+    # _inv_kernel(tail_done=True)
     ("ntt_inv_tailed", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:175"),
     ("ntt_variant", VARIANT_CU, "benchmarks/ntt_probe.py:35"),
 )
@@ -146,21 +156,21 @@ def _rand(gen, shape, bound):
 def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
     """Every kernel against its plain version on the card, and the split's
     compositions against the full kernels, at the CKKS and BFV paths'
-    logN 15 QP moduli and at logN 10; ntt_fwd / ntt_inv also at the CNN
-    path's shape (logN 14, its 18 QP moduli), the only kernels that path
-    runs, and at the 4-party mult's digit launch (4 x 14 digits x 32 QP
-    limbs x 2^15). Returns per-kernel max_abs_err, the times at logN 15
-    (batch 8 of the 32 QP limbs) and their bounds."""
+    logN 15 QP moduli, at logN 10 and at the CNN path's shape (logN 14, its
+    18 QP moduli); ntt_fwd / ntt_inv also at the 4-party mult's digit
+    launch (4 x 14 digits x 32 QP limbs x 2^15). Returns per-kernel
+    max_abs_err, the times at logN 15 (batch 8 of the 32 QP limbs) and
+    their bounds."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err = {name: 0 for name, _, _ in MAIN}
+    err = {}
     mism = comp_mism = 0
     times = {"15": {}, "14": {}, "digits": {}}
     ring10 = Ring.create(ring15.moduli, 10)
     for ring in (ring15, ring14, ring10, "digits"):
         digits = ring == "digits"
         ring = ring15 if digits else ring
-        split = ring is not ring14 and not digits
+        split = not digits
         shape = ((4, 14) if digits else (BATCH,)) + (ring.nlimbs, ring.n)
         q = ring.q[:, None]
         fwd_p = (ring.q, ring.bar, ring.psi, ring.psi_sh)
@@ -187,22 +197,41 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
         pairs = [(K.intt(K.ntt(canon, *fwd_t), *inv_t), canon)]
         if split:
             st = ring.split_tables()
-            head_t = (ring.q, st.twist, st.twist_sh, st.wpack, st.wpack_sh)
-            tfwd_t = (ring.q, ring.r_inv, st.tail_fwd, st.tail_pow)
-            tinv_t = (ring.q, ring.r_inv, st.tail_inv, st.tail_pow)
+            split_t = (ring.q, ring.r_inv, st)
+            head_t = (ring.q, st.twist, st.twist_sh, st.wpack, st.wpack_sh,
+                      st.twist_pack, st.wpack_pack)
+            tfwd_t = (ring.q, ring.r_inv, st.tail_fwd, st.tail_pow,
+                      st.tail_fwd_frag, st.tail_pow8)
+            tinv_t = (ring.q, ring.r_inv, st.tail_inv, st.tail_pow,
+                      st.tail_inv_frag, st.tail_pow8)
             itail_t = (ring.q, ring.bar, st.iwpack, st.iwpack_sh,
                        st.untwist, st.untwist_sh)
+            # the kernel's own tables (the plain versions read the rest)
+            head_r = (ring.q, st.twist_pack, st.wpack_pack[:, :ring.n - 128])
+            reads.update(ntt_split_fwd=head_r + (st.tail_fwd_frag,
+                                                 st.tail_pow8),
+                         ntt_fwd_head=head_r,
+                         ntt_tail=(ring.q, st.tail_inv_frag, st.tail_pow8))
             cases += (
+                ("ntt_split_fwd", K.ntt_split_fwd, split_t,
+                 K.ntt_split_fwd_plain, split_t, any32),
+                ("ntt_split_fwd", K.ntt_split_fwd, split_t,
+                 K.ntt_split_fwd_plain, split_t, canon),
+                ("ntt_tail", K.tail, tinv_t, K.tail_plain, tinv_t[:4], lazy),
+                ("ntt_tail", K.tail, tinv_t, K.tail_plain, tinv_t[:4],
+                 any32),
+                ("ntt_tail", K.tail, tfwd_t, K.tail_plain, tfwd_t[:4],
+                 any32),
                 ("ntt_fwd_head", K.ntt_head, head_t, K.ntt_head_plain,
-                 head_t, any32),
-                ("ntt_tail", K.tail, tfwd_t, K.tail_plain, tfwd_t, any32),
-                ("ntt_tail", K.tail, tinv_t, K.tail_plain, tinv_t, lazy),
+                 head_t[:5], any32),
                 ("ntt_inv_tailed", K.intt_tailed, itail_t,
                  K.intt_tailed_plain, itail_t, any32),
             )
             # the split's compositions against the full kernels
-            split_fwd = K.tail(K.ntt_head(any32, *head_t), *tfwd_t)
+            split_fwd = K.ntt_split_fwd(any32, *split_t)
             pairs += [(split_fwd, K.ntt(any32, *fwd_t)),
+                      (K.tail(K.ntt_head(any32, *head_t), *tfwd_t),
+                       split_fwd),
                       (K.intt_tailed(K.tail(lazy, *tinv_t), *itail_t),
                        K.intt(lazy, *inv_t)),
                       (K.intt_tailed(K.tail(split_fwd, *tinv_t), *itail_t),
@@ -211,7 +240,8 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
             got, want = kern(x, *ktabs), plain(x, *ptabs)
             torch.cuda.synchronize()
             mism += int((got != want).sum())
-            err[name] = max(err[name], int((got - want).abs().max()))
+            err[name] = max(err.get(name, 0),
+                            int((got - want).abs().max()))
             del got, want
         for got, want in pairs:
             torch.cuda.synchronize()
@@ -220,7 +250,8 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
             continue
         out = times["digits" if digits else "15" if ring is ring15 else "14"]
         for name, kern, ktabs, plain, ptabs, x in cases:
-            if name in out or (name == "ntt_fwd" and x is canon):
+            if name in out or (name in ("ntt_fwd", "ntt_split_fwd")
+                               and x is canon):
                 continue
             b_ms, b_by = profile_ntt.kernel_bound(name, x,
                                                   reads.get(name, ktabs))
@@ -238,11 +269,13 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
             + (f"; plain {r['plain_ms']:.4f}" if "plain_ms" in r else "")
             + ")" for name, r in t.items())
 
-    print(f"[3 kernels] mismatches {mism} kernel vs plain (5 kernels at "
-          f"logN 15 and 10, ntt_fwd / ntt_inv also at logN 14 and the "
-          f"digit launch; canonical, any-u32 and <8q inputs), {comp_mism} "
-          f"head+tail vs ntt_fwd, tail+inv_tailed vs ntt_inv and round "
-          f"trips; median ms at logN 15 batch {BATCH} x {ring15.nlimbs} "
+    print(f"[3 kernels] mismatches {mism} kernel vs plain (ntt_fwd, ntt_inv,"
+          f" the split kernel's fused forward, tail and head modes and the "
+          f"tailed inverse at logN 15, 14 and 10, ntt_fwd / ntt_inv also at "
+          f"the digit launch; canonical, any-u32 and <8q inputs), "
+          f"{comp_mism} ntt_split_fwd vs ntt_fwd, head+tail vs "
+          f"ntt_split_fwd, tail+inv_tailed vs ntt_inv and round trips; "
+          f"median ms at logN 15 batch {BATCH} x {ring15.nlimbs} "
           f"limbs: {show(times['15'])}; logN 14 batch {BATCH} x "
           f"{ring14.nlimbs} limbs (the CNN's QP): {show(times['14'])}; "
           f"digit launch 4 x 14 x {ring15.nlimbs} x 2^15: "
@@ -284,7 +317,8 @@ def phase_probe(ring14: Ring) -> dict:
                   ring.ntt(x)),
                  (ntt_cuda.ntt_variant(x, t, stages=ring.logn - 7),
                   ntt_cuda.ntt_head(x, t.q, t.twist, t.twist_sh, t.wpack,
-                                    t.wpack_sh)))
+                                    t.wpack_sh, t.twist_pack,
+                                    t.wpack_pack)))
         torch.cuda.synchronize()
         comp_mism += sum(int((got != want).sum()) for got, want in pairs)
     if mism or comp_mism:
@@ -470,9 +504,9 @@ def phase_bfv(params) -> dict:
         ms2 = request(2)[3]
         c0, c1, res_on, ms_on = request(4)
         launches = ntt_cuda.counters()
-        split = ("ntt_fwd_head", "ntt_tail", "ntt_inv_tailed")
-        if (min(launches[k] for k in split) < 1
-                or launches["ntt_fwd"] or launches["ntt_inv"]):
+        split = ("ntt_split_fwd", "ntt_tail", "ntt_inv_tailed")
+        if (min(launches[k] for k in split) < 1 or launches["ntt_fwd"]
+                or launches["ntt_inv"] or launches["ntt_fwd_head"]):
             raise AssertionError(f"the BFV path did not run the split: "
                                  f"{launches}")
         # the last 4-party mult again, in turns on, off, off, on

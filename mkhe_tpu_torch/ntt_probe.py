@@ -64,9 +64,8 @@ def variant_tables(ring: Ring) -> ntt_cuda.VariantTables:
     leaves Ring.ntt's route alone, which config.ntt_mxu_tail decides)."""
     st = ring.split_tables()
     return ntt_cuda.VariantTables(
-        ring.q, st.twist, st.twist_sh, st.wpack, st.wpack_sh,
-        ntt_cuda.pack_natural(st.twist, st.twist_sh, ring.moduli),
-        ntt_cuda.pack_natural(st.wpack, st.wpack_sh, ring.moduli))
+        ring.q, st.twist, st.twist_sh, st.wpack, st.wpack_sh, st.twist_pack,
+        st.wpack_pack)
 
 
 def rows(logn: int) -> list:

@@ -18,11 +18,17 @@ twiddles. `geometry` sets the launch: polynomials per block (several below
 logN 13), blocks, threads and shared memory, which the kernel checks, and
 the passes per logN, which the kernel works out by the same rule.
 
-The kernels of csrc/ntt_tail.cu are the split form of the same transforms
-(config.ntt_mxu_tail), replacing _fwd_kernel(head_only=True),
-_inv_kernel(tail_done=True) and the int8 tail map _tail_apply
-(ntt_pallas.py:80-104, 159-175, 266-312): `ntt_head`, `tail` and
-`intt_tailed`.
+The split form of the same transforms (config.ntt_mxu_tail) has two
+kernels. csrc/ntt_split.cu::ntt_split_kernel replaces
+_fwd_kernel(head_only=True) and the int8 tail map _tail_apply
+(ntt_pallas.py:47-104, 266-312) in three modes: the fused forward
+(`ntt_split_fwd`, Ring.ntt's one launch: head, then the tail on the tensor
+cores, one HBM pass), the tail alone (`tail`, either map) and the head
+alone (`ntt_head`). It reads the packed twist and wpack (`pack_natural`)
+and each limb's tail map in the kernel's fragment order
+(`tail_fragments`: 4 u8 digit planes). csrc/ntt_tail.cu::
+ntt_inv_tailed_kernel replaces _inv_kernel(tail_done=True) (:159-175):
+`intt_tailed`. The tables live in `SplitTables` (built by ops/ring.py).
 
 The kernel of csrc/ntt_variant.cu replaces the NTT cost probe's
 benchmarks/ntt_probe.py::_variant_kernel: `ntt_variant`, a forward NTT in
@@ -34,14 +40,15 @@ packed twiddles (natural order, `pack_natural`), for the settings of
 Every wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version (`ntt_plain` / `intt_plain`, the int64 transliteration of
 the JAX package's jnp path, mkhe_tpu/ops/ring.py:377-440; `ntt_head_plain`
-/ `tail_plain` / `intt_tailed_plain`, those of the Pallas split); a CUDA
+/ `tail_plain` / `ntt_split_fwd_plain` / `intt_tailed_plain`, those of the
+Pallas split); a CUDA
 tensor launches the kernel or raises. There is no fallback from one to the
 other.
 
-The build runs `nvcc` on first use, from csrc/*.cu alone, into
-build/mkhe_tpu_torch/ at the repository root, and again whenever a source
-is newer than the library. The library has a plain C interface and is
-loaded with ctypes.
+The build runs `nvcc` on first use, from csrc/*.cu alone (with the
+headers csrc/*.cuh), into build/mkhe_tpu_torch/ at the repository root,
+and again whenever a source or header is newer than the library. The
+library has a plain C interface and is loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -68,10 +75,12 @@ MAX_Q = 1 << 30  # the lazy butterflies keep values below 4q < 2^32
 LOG_VALS = 5     # a thread of the full kernels holds 2^5 coefficients
 MAX_PASS_BITS = 5   # stages of one register pass
 LOG_MIN_BLOCK = 13  # a block of the full kernels holds >= 2^13 coefficients
-SPLIT_MIN_LOGN = 7  # the split kernels work on whole 128-lane blocks
+SPLIT_MIN_LOGN = 8  # the split kernels are built for logN 8 .. 15
 TAIL_LANES = 128
-TAIL_DIGITS = 5
+TAIL_DIGITS = 5      # the JAX package's s8 planes of the tail map (plain)
 TAIL_DIGIT_BITS = 7
+FRAG_PLANES = 4      # the split kernel's u8 planes: base 2^8, 4 cover u32
+FRAG_SHAPE = (FRAG_PLANES, TAIL_LANES // 32, TAIL_LANES // 8, 32, 8)
 
 VARIANT_LOGNS = (10, 14, 15)  # the logN the variant kernel is built for
 ORDERS = ("poly", "limb")     # the variant's block orders
@@ -84,14 +93,15 @@ head_launches = 0
 tail_launches = 0
 inv_tailed_launches = 0
 variant_launches = 0
+split_fwd_launches = 0
 
 
 def reset_counters() -> None:
     global fwd_launches, inv_launches, head_launches, tail_launches
-    global inv_tailed_launches, variant_launches
+    global inv_tailed_launches, variant_launches, split_fwd_launches
     fwd_launches = inv_launches = 0
     head_launches = tail_launches = inv_tailed_launches = 0
-    variant_launches = 0
+    variant_launches = split_fwd_launches = 0
 
 
 def counters() -> dict:
@@ -99,7 +109,8 @@ def counters() -> dict:
     return {"ntt_fwd": fwd_launches, "ntt_inv": inv_launches,
             "ntt_fwd_head": head_launches, "ntt_tail": tail_launches,
             "ntt_inv_tailed": inv_tailed_launches,
-            "ntt_variant": variant_launches}
+            "ntt_variant": variant_launches,
+            "ntt_split_fwd": split_fwd_launches}
 
 
 # ----------------------------------------------------------------------------
@@ -120,13 +131,15 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH if it is missing or older than a
-    source: one nvcc per source, all started together, then one link.
+    source or a header (csrc/*.cuh): one nvcc per source, all started
+    together, then one link.
     Returns the compiler's output (ptxas register and shared memory
     report) when it ran, else ''."""
     sources = sorted(CSRC.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources in {CSRC}")
-    newest = max(s.stat().st_mtime for s in sources)
+    newest = max(s.stat().st_mtime
+                 for s in (*sources, *CSRC.glob("*.cuh")))
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -183,10 +196,8 @@ def load() -> ctypes.CDLL:
     lib.mkhe_ntt_fwd.restype = ci
     lib.mkhe_ntt_inv.argtypes = [vp] * 7 + [ci] * 7 + [vp]
     lib.mkhe_ntt_inv.restype = ci
-    lib.mkhe_ntt_fwd_head.argtypes = [vp] * 7 + [ci, ci, ci, vp]
-    lib.mkhe_ntt_fwd_head.restype = ci
-    lib.mkhe_ntt_tail.argtypes = [vp] * 5 + [ci, ci, ci, vp]
-    lib.mkhe_ntt_tail.restype = ci
+    lib.mkhe_ntt_split.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    lib.mkhe_ntt_split.restype = ci
     lib.mkhe_ntt_inv_tailed.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.mkhe_ntt_inv_tailed.restype = ci
     lib.mkhe_ntt_variant.argtypes = [vp] * 5 + [ci] * 11 + [vp]
@@ -298,13 +309,11 @@ def pack_twiddles(w: np.ndarray, w_sh: np.ndarray, moduli,
                                 ).view(np.int64)
 
 
-def pack_natural(w: torch.Tensor, w_sh: torch.Tensor, moduli
-                 ) -> torch.Tensor:
-    """The variant kernel's tables (twist, wpack): w | w_sh << 32 as an
-    int64 tensor on w's device, in natural order (`_pack` raises for a
-    modulus of 2^30 or more)."""
-    packed = _pack(w.cpu().numpy(), w_sh.cpu().numpy(), moduli)
-    return torch.from_numpy(packed.view(np.int64)).to(w.device)
+def pack_natural(w: np.ndarray, w_sh: np.ndarray, moduli) -> np.ndarray:
+    """The variant and split kernels' tables (twist, wpack) from (..., N)
+    tables w, w_sh: w | w_sh << 32 as int64, in natural order (`_pack`
+    raises for a modulus of 2^30 or more)."""
+    return _pack(w, w_sh, moduli).view(np.int64)
 
 
 def unpack_twiddles(pack: torch.Tensor, fwd: bool):
@@ -358,28 +367,53 @@ def _check(x, tables, consts, min_logn=1):
     return n_polys, L, logn
 
 
-def _check_tail(x, q, r_inv, mat, pw):
-    """_check for the tail: the (L, 5, 128, 128) int8 digit planes and the
-    (L, 9) int64 recombination powers beside the per-limb constants."""
-    shape = _check(x, (), (q, r_inv), min_logn=SPLIT_MIN_LOGN)
-    L = shape[1]
-    want = {"tail map": ((L, TAIL_DIGITS, TAIL_LANES, TAIL_LANES),
-                         torch.int8),
-            "tail powers": ((L, 2 * TAIL_DIGITS - 1), torch.int64)}
-    for t, (name, (shp, dtype)) in zip((mat, pw), want.items()):
+def _check_tables(x, want: dict, align: int = 0):
+    """Each named table (tensor, shape, dtype) contiguous, on x's device,
+    of its shape and type and, with align, aligned to that many bytes;
+    a table given as None is skipped."""
+    for name, (t, shp, dtype) in want.items():
+        if t is None:
+            continue
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous, on {x.device}")
-        if tuple(t.shape) != shp or t.dtype != dtype:
+        if tuple(t.shape) != tuple(shp) or t.dtype != dtype:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, "
-                             f"want {shp} {dtype}")
-    if mat.data_ptr() % 4:
-        raise ValueError("tail map: the kernel reads it in 4-byte words")
+                             f"want {tuple(shp)} {dtype}")
+        if align and t.data_ptr() % align:
+            raise ValueError(f"{name}: the kernel reads it in {align}-byte "
+                             f"pieces, so it must be {align}-byte aligned")
+
+
+def _check_tail(x, q, r_inv, mat, pw, frag=None, pw8=None):
+    """_check for the tail: the (L, 5, 128, 128) int8 digit planes and the
+    (L, 9) int64 recombination powers of the plain version beside the
+    per-limb constants, and the kernel's (L, *FRAG_SHAPE) uint8 fragment
+    table (16-byte aligned: cp.async) and (L, 7) powers where given."""
+    shape = _check(x, (), (q, r_inv), min_logn=SPLIT_MIN_LOGN)
+    L = shape[1]
+    _check_tables(x, {
+        "tail map": (mat, (L, TAIL_DIGITS, TAIL_LANES, TAIL_LANES),
+                     torch.int8),
+        "tail powers": (pw, (L, 2 * TAIL_DIGITS - 1), torch.int64),
+        "kernel tail powers": (pw8, (L, 2 * FRAG_PLANES - 1), torch.int64)})
+    _check_tables(x, {"tail fragments": (frag, (L, *FRAG_SHAPE),
+                                         torch.uint8)}, align=16)
     return shape
+
+
+def _check_packs(x, shape, twist_pack, wpack_pack):
+    """The head's packed (L, N) int64 twist and wpack (`pack_natural`),
+    where given, 16-byte aligned."""
+    L, n = shape[1], 1 << shape[2]
+    _check_tables(x, {"packed twist": (twist_pack, (L, n), torch.int64),
+                      "packed wpack": (wpack_pack, (L, n), torch.int64)},
+                  align=16)
 
 
 def _launch(fn, x, args, shape, extra=()):
     """Launch fn(x, out, *args, n_polys, L, logn, *extra, stream) on x's
-    device, shape = _check(...)'s (n_polys, L, logn)."""
+    device, shape = _check(...)'s (n_polys, L, logn); an arg of None is a
+    null pointer."""
     n_polys, L, logn = shape
     out = torch.empty_like(x)
     if n_polys == 0:
@@ -389,8 +423,8 @@ def _launch(fn, x, args, shape, extra=()):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(),
-                 *[t.data_ptr() for t in args], n_polys, L, logn, *extra,
-                 stream)
+                 *[None if t is None else t.data_ptr() for t in args],
+                 n_polys, L, logn, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     return out
@@ -447,35 +481,126 @@ def intt(x, q, bar, ipsi, ipsi_sh, ninv, ninv_sh, ipsi_pack):
     return out
 
 
-def ntt_head(x, q, twist, twist_sh, wpack, wpack_sh):
+@dataclasses.dataclass(frozen=True)
+class SplitTables:
+    """Per-limb tables of the split NTT, on the ring's device (built by
+    ops/ring.py::_split_tables). (L, N) int64: twist = psi^j, untwist =
+    psi^-j / N, wpack / iwpack = stage s (half-block h = N >> s) at offset
+    N - 2h holding omega^(+-2^(s-1) l), l < h, each with its Shoup companion
+    (*_sh). tail_fwd / tail_inv: (L, 5, 128, 128) int8 base-2^7 digit planes
+    of the tail map M, out = x @ M on each 128-lane block; tail_pow: (L, 9)
+    int64, 2^(7t+32) mod q. These equal the JAX package's tables of the
+    same names and serve the plain versions. The split kernel reads:
+    twist_pack / wpack_pack, (L, N) int64 w | w_sh << 32 (`pack_natural`);
+    tail_fwd_frag / tail_inv_frag, (L, *FRAG_SHAPE) uint8, each limb's map
+    in 4 base-2^8 planes in fragment order (`tail_fragments`); tail_pow8,
+    (L, 7) int64, 2^(8t+32) mod q."""
+    twist: torch.Tensor
+    twist_sh: torch.Tensor
+    untwist: torch.Tensor
+    untwist_sh: torch.Tensor
+    wpack: torch.Tensor
+    wpack_sh: torch.Tensor
+    iwpack: torch.Tensor
+    iwpack_sh: torch.Tensor
+    tail_fwd: torch.Tensor
+    tail_inv: torch.Tensor
+    tail_pow: torch.Tensor
+    twist_pack: torch.Tensor
+    wpack_pack: torch.Tensor
+    tail_fwd_frag: torch.Tensor
+    tail_inv_frag: torch.Tensor
+    tail_pow8: torch.Tensor
+
+
+def tail_fragments(m: np.ndarray) -> np.ndarray:
+    """The split kernel's table of one limb's tail map m ((128, 128)
+    canonical values < 2^32, out = x @ m): t[d, ks, nt, lane, b] = byte d
+    of m[32 ks + 16 hf + c + 4 e, 8 nt + g], hf = b // 4, e = b % 4,
+    g = lane // 4, c = lane % 4, so lane's bytes b are its B fragment
+    registers b0 (hf 0) and b1 (hf 1) of mma.sync m16n8k32 for k-step ks,
+    n-tile nt and plane d, with the kernel's permuted k (MMA k = 16 hf +
+    4 c + e is column 16 hf + c + 4 e of the k-step). uint8, FRAG_SHAPE."""
+    d, ks, nt, lane, b = np.meshgrid(*map(np.arange, FRAG_SHAPE),
+                                     indexing="ij")
+    row = 32 * ks + 16 * (b >> 2) + (lane & 3) + 4 * (b & 3)
+    col = 8 * nt + (lane >> 2)
+    vals = np.asarray(m, np.uint64)[row, col]
+    return ((vals >> (np.uint64(8) * d.astype(np.uint64))) & np.uint64(255)
+            ).astype(np.uint8)
+
+
+_HEAD, _TAIL = 1, 2   # mode bits of mkhe_ntt_split
+
+
+def _launch_split(x, shape, mode, q, twist_pack=None, wpack_pack=None,
+                  frag=None, pw8=None):
+    if mode == _TAIL and x.data_ptr() % 16:   # read in 16-byte pairs
+        x = x.clone()
+    return _launch(load().mkhe_ntt_split, x,
+                   (twist_pack, wpack_pack, frag, pw8, q), shape, (mode,))
+
+
+def _need(x, tables, what):
+    """Raise unless every kernel table is given (a CUDA tensor)."""
+    if any(t is None for t in tables):
+        raise ValueError(f"the split kernel on {x.device} reads {what}")
+
+
+def ntt_head(x, q, twist, twist_sh, wpack, wpack_sh, twist_pack=None,
+             wpack_pack=None):
     """Head of the split forward NTT over (..., L, N), any u32 input:
     twist by psi^j, then the DIF stages with half-block h = N/2 .. 128.
     Canonical output, still in the head's intermediate order (`tail`
-    with the forward map finishes the transform). Kernel on a CUDA
-    tensor, plain version on a CPU tensor."""
+    with the forward map finishes the transform). The split kernel's head
+    mode on a CUDA tensor (it reads twist_pack and wpack_pack, SplitTables),
+    plain version on a CPU tensor (it reads the natural tables)."""
     global head_launches
     shape = _check(x, (twist, twist_sh, wpack, wpack_sh), (q,),
                    min_logn=SPLIT_MIN_LOGN)
+    _check_packs(x, shape, twist_pack, wpack_pack)
     if not _device_route(x):
         return ntt_head_plain(x, q, twist, twist_sh, wpack, wpack_sh)
-    out = _launch(load().mkhe_ntt_fwd_head, x,
-                  (twist, twist_sh, wpack, wpack_sh, q), shape)
+    _need(x, (twist_pack, wpack_pack), "twist_pack and wpack_pack")
+    out = _launch_split(x, shape, _HEAD, q, twist_pack, wpack_pack)
     head_launches += 1
     return out
 
 
-def tail(x, q, r_inv, mat, pw):
+def tail(x, q, r_inv, mat, pw, frag=None, pw8=None):
     """Each 128-lane block of (..., L, N) times its limb's fixed 128x128
     map over Z_q (tail_fwd or tail_inv), any u32 input, canonical output.
-    Kernel on a CUDA tensor, plain version on a CPU tensor. r_inv
-    (2^-32 mod q) serves the plain version's Montgomery step; the kernel
-    works out -q^-1 mod 2^32 itself."""
+    The split kernel's tail mode on a CUDA tensor (it reads the map's
+    fragment table frag, SplitTables.tail_fwd_frag or tail_inv_frag, and
+    pw8 = tail_pow8, and works out -q^-1 mod 2^32 itself), plain version
+    on a CPU tensor (it reads mat and pw, and r_inv = 2^-32 mod q)."""
     global tail_launches
-    shape = _check_tail(x, q, r_inv, mat, pw)
+    shape = _check_tail(x, q, r_inv, mat, pw, frag, pw8)
     if not _device_route(x):
         return tail_plain(x, q, r_inv, mat, pw)
-    out = _launch(load().mkhe_ntt_tail, x, (mat, pw, q), shape)
+    _need(x, (frag, pw8), "the map's fragment table and tail_pow8")
+    out = _launch_split(x, shape, _TAIL, q, frag=frag, pw8=pw8)
     tail_launches += 1
+    return out
+
+
+def ntt_split_fwd(x, q, r_inv, t: SplitTables):
+    """The split forward NTT over (..., L, N), any u32 input -> canonical,
+    bit-reversed order: the head, then the tail with the forward map.
+    On a CUDA tensor one launch of the split kernel's fused mode (it reads
+    q, t.twist_pack, t.wpack_pack, t.tail_fwd_frag and t.tail_pow8); on a
+    CPU tensor `ntt_split_fwd_plain`."""
+    global split_fwd_launches
+    shape = _check(x, (t.twist, t.twist_sh, t.wpack, t.wpack_sh), (q,),
+                   min_logn=SPLIT_MIN_LOGN)
+    _check_tail(x, q, r_inv, t.tail_fwd, t.tail_pow, t.tail_fwd_frag,
+                t.tail_pow8)
+    _check_packs(x, shape, t.twist_pack, t.wpack_pack)
+    if not _device_route(x):
+        return ntt_split_fwd_plain(x, q, r_inv, t)
+    out = _launch_split(x, shape, _HEAD | _TAIL, q, t.twist_pack,
+                        t.wpack_pack, t.tail_fwd_frag, t.tail_pow8)
+    split_fwd_launches += 1
     return out
 
 
@@ -676,6 +801,13 @@ def ntt_variant_plain(x, t: VariantTables, *, stages: int,
         a = torch.stack([mm.add_mod(top, up, qq), diff],
                         dim=-2).reshape(x.shape)
     return a
+
+
+def ntt_split_fwd_plain(x, q, r_inv, t: SplitTables):
+    """The split forward NTT as its two plain parts: tail_plain (forward
+    map) of ntt_head_plain."""
+    head = ntt_head_plain(x, q, t.twist, t.twist_sh, t.wpack, t.wpack_sh)
+    return tail_plain(head, q, r_inv, t.tail_fwd, t.tail_pow)
 
 
 def tail_plain(x, q, r_inv, mat, pw):

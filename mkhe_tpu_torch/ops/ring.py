@@ -12,14 +12,17 @@ versions for a CPU tensor. With config.ntt_mxu_tail on and N >= 256 they
 take the split form instead (mkhe_tpu/ops/ntt_pallas.py:9-17, 266-312):
 
   ntt  = head (twist by psi^j, DIF stages with half-block h >= 128)
-         -> tail (the stages h = 64 .. 1 as one 128x128 map per limb);
+         -> tail (the stages h = 64 .. 1 as one 128x128 map per limb),
+         one launch of the fused split kernel on a CUDA tensor;
   intt = tail (DIT stages h = 1 .. 64) -> DIT stages h >= 128 + untwist.
 
 The split's tables (twist, untwist, the stage-packed wpack / iwpack with
 their Shoup companions, and the tail maps as int8 digit planes) equal the
-JAX package's of the same names (mkhe_tpu/ops/ring.py:77-212). They are
-built only when the split is first used, from a cache keyed on
-(moduli, logn, device), so rings made by take / concat get them too.
+JAX package's of the same names (mkhe_tpu/ops/ring.py:77-212); beside
+them SplitTables holds the split kernel's own (packed twist and wpack,
+the maps as u8 planes in fragment order). They are built only when the
+split is first used, from a cache keyed on (moduli, logn, device), so
+rings made by take / concat get them too.
 
 The automorphisms X -> X^gal (permute_coeffs, permute_ntt) are gathers
 along the last axis. Their index tables are built with numpy once per
@@ -38,7 +41,8 @@ import torch
 from .. import config
 from . import modmath as mm
 from . import ntt_cuda
-from .ntt_cuda import TAIL_DIGIT_BITS, TAIL_DIGITS, TAIL_LANES
+from .ntt_cuda import (FRAG_PLANES, SPLIT_MIN_LOGN, TAIL_DIGIT_BITS,
+                       TAIL_DIGITS, TAIL_LANES, SplitTables)
 from .primes import primitive_root_2n
 
 TABLE_FIELDS = ("q", "r_inv", "r2", "bar", "psi", "psi_sh", "ipsi",
@@ -47,8 +51,9 @@ TABLE_FIELDS = ("q", "r_inv", "r2", "bar", "psi", "psi_sh", "ipsi",
 # Stages with half-block h < TAIL_LANES = 128 stay inside one 128-lane
 # block: together they are one fixed 128x128 map per limb, stored as
 # TAIL_DIGITS = 5 base-2^TAIL_DIGIT_BITS (2^7) digit planes (0..127 fit
-# int8 exactly; 5 * 7 = 35 bits cover any u32).
-SPLIT_MIN_LOGN = 8   # Ring.ntt / intt take the split for N >= 256
+# int8 exactly; 5 * 7 = 35 bits cover any u32) for the plain version, and
+# as FRAG_PLANES = 4 base-2^8 planes in the split kernel's fragment order.
+# Ring.ntt / intt take the split for N >= 2^SPLIT_MIN_LOGN = 256.
 
 
 def _pow_seq(base: int, n: int, q: int) -> np.ndarray:
@@ -116,32 +121,15 @@ def _host_tables(moduli: Tuple[int, ...], logn: int) -> dict:
 # Tables of the split NTT (config.ntt_mxu_tail)
 # ----------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class SplitTables:
-    """Per-limb tables of the split NTT, on the ring's device. (L, N)
-    int64: twist = psi^j, untwist = psi^-j / N, wpack / iwpack = stage s
-    (half-block h = N >> s) at offset N - 2h holding omega^(+-2^(s-1) l),
-    l < h, each with its Shoup companion (*_sh). tail_fwd / tail_inv:
-    (L, 5, 128, 128) int8 base-2^7 digit planes of the tail map M, out =
-    x @ M on each 128-lane block. tail_pow: (L, 9) int64, 2^(7t+32) mod q."""
-    twist: torch.Tensor
-    twist_sh: torch.Tensor
-    untwist: torch.Tensor
-    untwist_sh: torch.Tensor
-    wpack: torch.Tensor
-    wpack_sh: torch.Tensor
-    iwpack: torch.Tensor
-    iwpack_sh: torch.Tensor
-    tail_fwd: torch.Tensor
-    tail_inv: torch.Tensor
-    tail_pow: torch.Tensor
-
-
-SPLIT_FIELDS = tuple(f.name for f in dataclasses.fields(SplitTables))
+# The split's tables that equal the JAX package's of the same names
+# (SplitTables has the split kernel's besides).
+SPLIT_FIELDS = ("twist", "twist_sh", "untwist", "untwist_sh", "wpack",
+                "wpack_sh", "iwpack", "iwpack_sh", "tail_fwd", "tail_inv",
+                "tail_pow")
 
 
 def _tail_maps(q: int, logn: int, wpack: np.ndarray, iwpack: np.ndarray):
-    """The tail's two 128x128 maps over Z_q for one limb, as digit planes:
+    """The tail's two 128x128 maps over Z_q for one limb, canonical uint64:
     forward = the DIF stages h = 64 .. 1, inverse = the DIT stages h = 1
     .. 64, each an exact simulation of the stage arithmetic
     (mkhe_tpu/ops/ring.py::_tail_matrices)."""
@@ -171,12 +159,16 @@ def _tail_maps(q: int, logn: int, wpack: np.ndarray, iwpack: np.ndarray):
         v = np.where(first[None, :], p, inv) * tw(iwpack, h)[None, :] % qq
         inv = np.where(first[None, :], (inv + v) % qq, (mn + qq - v) % qq)
         h *= 2
+    return fwd, inv
+
+
+def _digit_planes(m: np.ndarray) -> np.ndarray:
+    """The JAX package's form of a tail map: TAIL_DIGITS int8 planes of
+    base 2^TAIL_DIGIT_BITS."""
     shifts = np.uint64(TAIL_DIGIT_BITS) * np.arange(TAIL_DIGITS,
                                                     dtype=np.uint64)
     mask = np.uint64((1 << TAIL_DIGIT_BITS) - 1)
-    planes = lambda m: ((m[None] >> shifts[:, None, None]) & mask
-                        ).astype(np.int8)
-    return planes(fwd), planes(inv)
+    return ((m[None] >> shifts[:, None, None]) & mask).astype(np.int8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,11 +191,19 @@ def _limb_split_tables(q: int, logn: int) -> dict:
                % np.uint64(q), wpack=wpack, iwpack=iwpack)
     for k in list(out):
         out[k + "_sh"] = _shoup_vec(out[k], q)
+    for k in ("twist", "wpack"):   # the split kernel's packed forms
+        out[k + "_pack"] = ntt_cuda.pack_natural(out[k], out[k + "_sh"], (q,))
     out = {k: v.astype(np.int64) for k, v in out.items()}
-    out["tail_fwd"], out["tail_inv"] = _tail_maps(q, logn, wpack, iwpack)
+    fwd_m, inv_m = _tail_maps(q, logn, wpack, iwpack)
+    out["tail_fwd"], out["tail_inv"] = map(_digit_planes, (fwd_m, inv_m))
+    out["tail_fwd_frag"] = ntt_cuda.tail_fragments(fwd_m)
+    out["tail_inv_frag"] = ntt_cuda.tail_fragments(inv_m)
     out["tail_pow"] = np.array(
         [(1 << (TAIL_DIGIT_BITS * t + 32)) % q
          for t in range(2 * TAIL_DIGITS - 1)], np.int64)
+    out["tail_pow8"] = np.array(
+        [(1 << (8 * t + 32)) % q for t in range(2 * FRAG_PLANES - 1)],
+        np.int64)
     return out
 
 
@@ -211,8 +211,9 @@ def _limb_split_tables(q: int, logn: int) -> dict:
 def _split_tables(moduli: Tuple[int, ...], logn: int, device: torch.device
                   ) -> SplitTables:
     limbs = [_limb_split_tables(q, logn) for q in moduli]
-    return SplitTables(**{k: torch.from_numpy(np.stack([t[k] for t in limbs]))
-                          .to(device) for k in SPLIT_FIELDS})
+    return SplitTables(**{
+        f.name: torch.from_numpy(np.stack([t[f.name] for t in limbs]))
+        .to(device) for f in dataclasses.fields(SplitTables)})
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -318,11 +319,8 @@ class Ring:
         package's ntt(reduce_input=True)."""
         a = a.contiguous()
         if self._split():
-            t = self.split_tables()
-            head = ntt_cuda.ntt_head(a, self.q, t.twist, t.twist_sh,
-                                     t.wpack, t.wpack_sh)
-            return ntt_cuda.tail(head, self.q, self.r_inv, t.tail_fwd,
-                                 t.tail_pow)
+            return ntt_cuda.ntt_split_fwd(a, self.q, self.r_inv,
+                                          self.split_tables())
         return ntt_cuda.ntt(a, self.q, self.bar, self.psi, self.psi_sh,
                             self.psi_pack)
 
@@ -334,7 +332,7 @@ class Ring:
         if self._split():
             t = self.split_tables()
             tailed = ntt_cuda.tail(a, self.q, self.r_inv, t.tail_inv,
-                                   t.tail_pow)
+                                   t.tail_pow, t.tail_inv_frag, t.tail_pow8)
             return ntt_cuda.intt_tailed(tailed, self.q, self.bar, t.iwpack,
                                         t.iwpack_sh, t.untwist,
                                         t.untwist_sh)

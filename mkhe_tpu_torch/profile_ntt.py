@@ -1,8 +1,7 @@
-"""Time the full NTT kernels (csrc/ntt.cu) on the card at the main path's
-shapes, against their bound and, optionally, the kernels of another
-checkout.
+"""Time the NTT kernels on the card at the main path's shapes, against
+their bound and, optionally, the kernels of another checkout.
 
-    python -m mkhe_tpu_torch.profile_ntt [--other DIR] [--reps N]
+    python -m mkhe_tpu_torch.profile_ntt [--other DIR] [--reps N] [--split]
 
 Shapes (polynomials x limbs x N, the QP moduli of the preset):
   pn15    8 x 32 x 2^15, PN15QP880 (phase 3 of chip_smoke.py);
@@ -15,10 +14,15 @@ Variants: `new` (this checkout's Ring.ntt / Ring.intt) and, with
 --other, `old`: those of another checkout (e.g. the parent commit
 unpacked with `git archive` into build/), loaded beside this one in the
 same process (profile_ab.load_other) with its own kernels and tables.
+With --split, config.ntt_mxu_tail is on for both checkouts (the split
+forward: csrc/ntt_split.cu's fused kernel here, the parent's head + tail
+there; the split inverse: tail + tailed inverse), and a third variant,
+`full`, is this checkout's unsplit Ring.ntt / Ring.intt (csrc/ntt.cu); the
+bound is the split path's (ntt_split_fwd; ntt_tail + ntt_inv_tailed).
 Each variant's output must equal the new one's bit for bit (and the plain
 version's at pn15). Times are medians of `reps` CUDA-event timings per
 turn, each the mean of 10 back-to-back calls, the variants in turns old,
-new, new, old; the last line is one JSON object.
+new(, full, full), new, old; the last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-from . import profile_ab
+from . import config, profile_ab
 from .mkckks import params as ckks_params
 from .ops import ntt_cuda
 from .ops.ring import Ring
@@ -73,8 +77,10 @@ def kernel_bound(name: str, x, tables, stages: int = 0, mul: bool = True):
     and constant read once; 6 int32 operations a butterfly (three
     products, three sums), 3 a coefficient for the Barrett reduction and 4
     for each multiply by a per-coefficient or per-limb constant (twist,
-    untwist, N^-1); the tail's 25 int8 digit-plane products (2 x 128
-    operations a coefficient each) and its 9-term recombination.
+    untwist, N^-1); the split kernel's tail (ntt_tail, and after the head in
+    ntt_split_fwd): 16 u8 digit-plane products (2 x 128 int8 operations a
+    coefficient each) and the recombination of 7 partial sums (3 a term,
+    6 for the Montgomery step).
     "ntt_variant" (the probe's transform, `stages` DIF stages, twiddle
     multiplies if `mul`): 6 a butterfly of a stage with a multiply (every
     stage but h = 1 when mul), 3 (the sums) a butterfly of one without, and
@@ -85,16 +91,19 @@ def kernel_bound(name: str, x, tables, stages: int = 0, mul: bool = True):
     n, logn = x.numel(), x.shape[-1].bit_length() - 1
     nbytes = 16 * n + sum(t.numel() * t.element_size() for t in tables)
     bfly, int8 = n // 2, 0
+    sums = 2 * ntt_cuda.FRAG_PLANES - 1
+    recomb = 3 * sums + 6
     muls = (stages - (stages == logn)) if mul else 0
     ops = {"ntt_fwd": 6 * bfly * logn + 3 * n,
            "ntt_inv": 6 * bfly * logn + 7 * n,
            "ntt_fwd_head": 6 * bfly * (logn - 7) + 4 * n,
            "ntt_inv_tailed": 6 * bfly * (logn - 7) + 7 * n,
-           "ntt_tail": 27 * n,
+           "ntt_tail": recomb * n,
+           "ntt_split_fwd": 6 * bfly * (logn - 7) + 4 * n + recomb * n,
            "ntt_variant": 6 * bfly * muls + 3 * bfly * (stages - muls)
            + 4 * n}[name]
-    if name == "ntt_tail":
-        int8 = 25 * 2 * ntt_cuda.TAIL_LANES * n
+    if name in ("ntt_tail", "ntt_split_fwd"):
+        int8 = ntt_cuda.FRAG_PLANES ** 2 * 2 * ntt_cuda.TAIL_LANES * n
     return bound(nbytes, ops, int8)
 
 
@@ -140,19 +149,53 @@ def graph_ms(fn, reps: int, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def run(reps: int, other=None) -> dict:
-    rings = {"new": Ring}
+def _switched(cfg, on: bool, fn):
+    """fn, called with cfg.ntt_mxu_tail = on (then off again)."""
+    def call():
+        cfg.ntt_mxu_tail = on
+        try:
+            return fn()
+        finally:
+            cfg.ntt_mxu_tail = False
+    return call
+
+
+def split_bound(ring, inp, fwd: bool):
+    """The split path's bound on inp: the fused forward's, or the tail's
+    and the tailed inverse's summed; each kernel counts the tables it
+    reads (the head only the wpack entries of its stages)."""
+    st = ring.split_tables()
+    if fwd:
+        return kernel_bound("ntt_split_fwd", inp, (
+            ring.q, st.twist_pack, st.wpack_pack[:, :ring.n - 128],
+            st.tail_fwd_frag, st.tail_pow8))
+    parts = (kernel_bound("ntt_tail", inp, (ring.q, st.tail_inv_frag,
+                                            st.tail_pow8)),
+             kernel_bound("ntt_inv_tailed", inp, (
+                 ring.q, ring.bar, st.iwpack, st.iwpack_sh, st.untwist,
+                 st.untwist_sh)))
+    bys = {by for _, by in parts}
+    return sum(ms for ms, _ in parts), "/".join(sorted(bys))
+
+
+def run(reps: int, other=None, split: bool = False) -> dict:
+    pkgs = {"new": (Ring, config)}
     if other:
         profile_ab.load_other(Path(other).resolve())
-        rings["old"] = importlib.import_module(
-            profile_ab.OTHER + ".ops.ring").Ring
+        pkgs["old"] = (importlib.import_module(
+            profile_ab.OTHER + ".ops.ring").Ring,
+            importlib.import_module(profile_ab.OTHER + ".config"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2024)
     result = {}
     for label, (preset, batch) in SHAPES.items():
         rs = {name: qp_ring(preset, ring_cls=cls)
-              for name, cls in rings.items()}
+              for name, (cls, _) in pkgs.items()}
         ring = rs["new"]
+        subjects = [(name, rs[name], cfg, split)
+                    for name, (_, cfg) in pkgs.items()]
+        if split:
+            subjects.append(("full", ring, config, False))
         x = torch.randint(0, 1 << 32, (*batch, ring.nlimbs, ring.n),
                           generator=gen, dtype=torch.int64, device="cuda")
         x_inv = x % (8 * ring.q[:, None])
@@ -160,8 +203,9 @@ def run(reps: int, other=None) -> dict:
         row = {"shape": [*batch, ring.nlimbs, ring.n], "n_polys": n_polys}
         for fwd, inp in ((True, x), (False, x_inv)):
             kind = "fwd" if fwd else "inv"
-            var = {name: (lambda r=r: r.ntt(inp)) if fwd else
-                   (lambda r=r: r.intt(inp)) for name, r in rs.items()}
+            var = {name: _switched(cfg, on, (lambda r=r: r.ntt(inp)) if fwd
+                                   else (lambda r=r: r.intt(inp)))
+                   for name, r, cfg, on in subjects}
             want = var["new"]()
             if label == "pn15":
                 plain = (ntt_cuda.ntt_plain(inp, ring.q, ring.bar, ring.psi,
@@ -174,14 +218,18 @@ def run(reps: int, other=None) -> dict:
             for name, fn in var.items():
                 if not torch.equal(fn(), want):
                     raise AssertionError(f"{label} {kind}: {name} != new")
-            names = list(var)[::-1]     # old first
+            names = [n for n in ("old", "new", "full") if n in var]
             times = {name: [] for name in names}
             for name in names + names[::-1]:
                 times[name].append(cuda_ms(var[name], reps))
-            b_ms, b_by = kernel_bound(
-                "ntt_" + kind, inp,
-                (ring.psi_pack, ring.q, ring.bar) if fwd else
-                (ring.ipsi_pack, ring.q, ring.bar, ring.ninv, ring.ninv_sh))
+            if split:
+                b_ms, b_by = split_bound(ring, inp, fwd)
+            else:
+                b_ms, b_by = kernel_bound(
+                    "ntt_" + kind, inp,
+                    (ring.psi_pack, ring.q, ring.bar) if fwd else
+                    (ring.ipsi_pack, ring.q, ring.bar, ring.ninv,
+                     ring.ninv_sh))
             row[kind] = {"bound_ms": b_ms, "bound_by": b_by, "ms": times,
                          "share": {name: b_ms / statistics.median(t)
                                    for name, t in times.items()}}
@@ -193,6 +241,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="root of another checkout")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--split", action="store_true",
+                    help="time the split NTT (config.ntt_mxu_tail) and this "
+                         "checkout's full kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_ntt needs a CUDA device")
@@ -202,7 +253,7 @@ def main() -> None:
     print(smi, flush=True)
     print("ptxas: " + " | ".join(ntt_cuda.ptxas_lines(ntt_cuda.build())),
           flush=True)
-    res = run(args.reps, args.other)
+    res = run(args.reps, args.other, args.split)
     for label, row in res.items():
         for kind in ("fwd", "inv"):
             r = row[kind]
@@ -211,7 +262,8 @@ def main() -> None:
                       f"{name} {[round(t, 4) for t in ts]} (share "
                       f"{r['share'][name]:.3f})"
                       for name, ts in r["ms"].items()), flush=True)
-    print(json.dumps({"device": smi, "ntt": res}), flush=True)
+    print(json.dumps({"device": smi, "split": args.split, "ntt": res}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, the split NTT's head,
-tail and tailed inverse in csrc/ntt_tail.cu, and the NTT cost probe's
-variant in csrc/ntt_variant.cu) against their plain PyTorch versions on
+"""The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, the split NTT's
+kernel in csrc/ntt_split.cu in its three modes and its tailed inverse in
+csrc/ntt_tail.cu, and the NTT cost probe's variant in csrc/ntt_variant.cu) against their plain PyTorch versions on
 the card, bit for bit; and rotation, conjugation and
 the CNN pipeline on the card against the same calls on the CPU. Needs an
 NVIDIA GPU and nvcc; without a card every test skips. This file imports
@@ -122,41 +122,60 @@ def test_wrapper_raises_on_cuda(gen):
 
 def _split_args(ring):
     t = ring.split_tables()
-    head = (ring.q, t.twist, t.twist_sh, t.wpack, t.wpack_sh)
+    head = (ring.q, t.twist, t.twist_sh, t.wpack, t.wpack_sh, t.twist_pack,
+            t.wpack_pack)
     inv = (ring.q, ring.bar, t.iwpack, t.iwpack_sh, t.untwist, t.untwist_sh)
     return t, head, inv
 
 
 @pytest.mark.parametrize("logn", [8, 9, 10, 12, 14, 15])
 def test_split_kernels_match_plain(gen, logn):
-    """Head, tail (both maps) and tailed inverse against their plain
-    versions; head + tail against ntt_fwd_kernel, tail + tailed inverse
-    against ntt_inv_kernel; any-u32 and < 8q inputs."""
+    """The split kernel's fused forward, head and tail (both maps) and the
+    tailed inverse against their plain versions; the fused forward and
+    head + tail against ntt_fwd_kernel, tail + tailed inverse against
+    ntt_inv_kernel, the round trip; canonical, any-u32 (with 2^32 - 1
+    extremes) and < 8q inputs, 6 polynomials a limb."""
     ring = _ring(logn)
     t, head, inv = _split_args(ring)
     q = ring.q[:, None]
     shape = (2, 3, ring.nlimbs, ring.n)
     fwd_t, _, inv_t, _ = _full_args(ring)
     x = _rand(gen, shape, 1 << 32)
+    x[0, 0, :, :300] = (1 << 32) - 1
+    split = (ring.q, ring.r_inv, t)
+    for inp in (x, _rand(gen, shape, q)):
+        fused = ntt_cuda.ntt_split_fwd(inp, *split)
+        assert torch.equal(fused, ntt_cuda.ntt_split_fwd_plain(inp, *split))
+        assert torch.equal(fused, ntt_cuda.ntt(inp, *fwd_t))
     h = ntt_cuda.ntt_head(x, *head)
-    assert torch.equal(h, ntt_cuda.ntt_head_plain(x, *head))
-    for mat in (t.tail_fwd, t.tail_inv):
-        args = (ring.q, ring.r_inv, mat, t.tail_pow)
-        assert torch.equal(ntt_cuda.tail(x, *args),
-                           ntt_cuda.tail_plain(x, *args))
-    fwd = ntt_cuda.tail(h, ring.q, ring.r_inv, t.tail_fwd, t.tail_pow)
-    assert torch.equal(fwd, ntt_cuda.ntt(x, *fwd_t))
+    assert torch.equal(h, ntt_cuda.ntt_head_plain(x, *head[:5]))
     y = _rand(gen, shape, 8 * q)
-    tailed = ntt_cuda.tail(y, ring.q, ring.r_inv, t.tail_inv, t.tail_pow)
+    for mat, frag in ((t.tail_fwd, t.tail_fwd_frag),
+                      (t.tail_inv, t.tail_inv_frag)):
+        args = (ring.q, ring.r_inv, mat, t.tail_pow)
+        for inp in (x, y):
+            assert torch.equal(ntt_cuda.tail(inp, *args, frag, t.tail_pow8),
+                               ntt_cuda.tail_plain(inp, *args))
+    fwd = ntt_cuda.tail(h, ring.q, ring.r_inv, t.tail_fwd, t.tail_pow,
+                        t.tail_fwd_frag, t.tail_pow8)
+    assert torch.equal(fwd, ntt_cuda.ntt(x, *fwd_t))
+    tailed = ntt_cuda.tail(y, ring.q, ring.r_inv, t.tail_inv, t.tail_pow,
+                           t.tail_inv_frag, t.tail_pow8)
     got = ntt_cuda.intt_tailed(tailed, *inv)
     assert torch.equal(got, ntt_cuda.intt_tailed_plain(tailed, *inv))
     assert torch.equal(got, ntt_cuda.intt(y, *inv_t))
+    from mkhe_tpu_torch import config
+    config.ntt_mxu_tail = True
+    try:
+        assert torch.equal(ring.intt(ring.ntt(x)), ring.reduce(x))
+    finally:
+        config.ntt_mxu_tail = False
     torch.cuda.synchronize()
 
 
 def test_split_routing_and_counters(gen):
-    """With config.ntt_mxu_tail the ring runs head -> tail and tail ->
-    tailed inverse, and only kernel launches count."""
+    """With config.ntt_mxu_tail the ring runs the fused forward (one
+    launch) and tail -> tailed inverse, and only kernel launches count."""
     from mkhe_tpu_torch import config
     ring = _ring(10)
     x = _rand(gen, (ring.nlimbs, ring.n), ring.q[:, None])
@@ -170,8 +189,40 @@ def test_split_routing_and_counters(gen):
         config.ntt_mxu_tail = False
     assert torch.equal(got, want) and torch.equal(back, x)
     assert ntt_cuda.counters() == {"ntt_fwd": 0, "ntt_inv": 0,
-                                   "ntt_fwd_head": 1, "ntt_tail": 2,
-                                   "ntt_inv_tailed": 1, "ntt_variant": 0}
+                                   "ntt_fwd_head": 0, "ntt_tail": 1,
+                                   "ntt_inv_tailed": 1, "ntt_variant": 0,
+                                   "ntt_split_fwd": 1}
+
+
+def test_split_wrappers_raise_on_cuda(gen):
+    """On a CUDA tensor the head and tail need the kernel's tables, and a
+    misaligned fragment table or a logN the kernel is not built for
+    raises; a CUDA tensor never reaches a plain version."""
+    import dataclasses
+    ring = _ring(10)
+    t, head, _ = _split_args(ring)
+    x = _rand(gen, (ring.nlimbs, ring.n), 1 << 32)
+    with pytest.raises(ValueError, match="reads"):
+        ntt_cuda.ntt_head(x, *head[:5])
+    with pytest.raises(ValueError, match="reads"):
+        ntt_cuda.tail(x, ring.q, ring.r_inv, t.tail_inv, t.tail_pow)
+    flat = torch.zeros(t.tail_fwd_frag.numel() + 1, dtype=torch.uint8,
+                       device="cuda")
+    skewed = flat[1:].view(t.tail_fwd_frag.shape)
+    skewed.copy_(t.tail_fwd_frag)
+    with pytest.raises(ValueError, match="16-byte"):
+        ntt_cuda.ntt_split_fwd(x, ring.q, ring.r_inv,
+                               dataclasses.replace(t, tail_fwd_frag=skewed))
+    small = _ring(7)
+    small_t = small.split_tables()
+    with pytest.raises(ValueError):
+        ntt_cuda.ntt_split_fwd(_rand(gen, (small.nlimbs, small.n), 1 << 32),
+                               small.q, small.r_inv, small_t)
+    ntt_cuda.reset_counters()
+    ntt_cuda.ntt_split_fwd(x, ring.q, ring.r_inv, t)
+    ntt_cuda.ntt_split_fwd_plain(x, ring.q, ring.r_inv, t)
+    assert ntt_cuda.counters()["ntt_split_fwd"] == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("logn", ntt_cuda.VARIANT_LOGNS)
@@ -196,7 +247,8 @@ def test_variant_kernel_matches_plain(gen, logn):
                        ring.ntt(x))
     assert torch.equal(ntt_cuda.ntt_variant(x, t, stages=logn - 7),
                        ntt_cuda.ntt_head(x, t.q, t.twist, t.twist_sh,
-                                         t.wpack, t.wpack_sh))
+                                         t.wpack, t.wpack_sh, t.twist_pack,
+                                         t.wpack_pack))
     torch.cuda.synchronize()
 
 
@@ -228,7 +280,8 @@ def test_variant_wrapper_raises_on_cuda(gen):
         ntt_cuda.ntt_variant(x, dataclasses.replace(t, wpack_pack=skewed),
                              stages=14)
     with pytest.raises(ValueError, match="2\\^30"):
-        ntt_cuda.pack_natural(t.wpack, t.wpack_sh,
+        ntt_cuda.pack_natural(t.wpack.cpu().numpy(),
+                              t.wpack_sh.cpu().numpy(),
                               ring.moduli[:-1] + ((1 << 30) + 3,))
     ntt_cuda.reset_counters()
     ntt_cuda.ntt_variant(x, t, stages=14)

@@ -349,7 +349,8 @@ def test_wrapper_checks():
     with pytest.raises(TypeError):
         ntt_cuda.ntt_variant(x.to(torch.int32), t, stages=10)
     with pytest.raises(ValueError, match="2\\^30"):
-        ntt_cuda.pack_natural(t.wpack, t.wpack_sh, (ring.moduli[0], 1 << 30))
+        ntt_cuda.pack_natural(t.wpack.numpy(), t.wpack_sh.numpy(),
+                              (ring.moduli[0], 1 << 30))
     assert ntt_cuda.variant_settings(12) == frozenset()
     assert len(ntt_cuda.variant_settings(15)) == 5   # logN - 7 = 8
     assert len(ntt_cuda.variant_settings(14)) == 6
