@@ -6,8 +6,8 @@
 Phases, one line each, then two JSON lines:
   1. device   torch / CUDA versions and the card, plus nvidia-smi's
               "name, power.limit" line;
-  2. build    nvcc builds csrc/ntt.cu, csrc/ntt_split.cu, csrc/ntt_tail.cu
-              and csrc/ntt_variant.cu (sm_90a) from the checkout, one
+  2. build    nvcc builds csrc/ntt.cu, csrc/ntt_split.cu and
+              csrc/ntt_variant.cu (sm_90a) from the checkout, one
               compiler per source, started together;
               ptxas's spills and registers per kernel;
   3. kernels  the NTT kernels against their plain PyTorch versions on the
@@ -15,13 +15,15 @@ Phases, one line each, then two JSON lines:
               N = 2^15, batch 8), at logN = 10 and at the CNN's
               PN14QP433_CNN QP moduli (18 limbs, N = 2^14, batch 8), with
               canonical, any-u32 and < 8q inputs: ntt_fwd, ntt_inv, the
-              split kernel (csrc/ntt_split.cu) in its three modes (the
+              split kernels (csrc/ntt_split.cu) in their five modes (the
               fused forward ntt_split_fwd, the tail with either map, the
-              head) and the tailed inverse; ntt_fwd and ntt_inv also at
-              the 4-party mult's digit launch (4 x 14 digits x 32 QP limbs
-              x 2^15); the fused forward and head + tail against the full
-              forward kernel, tail + tailed inverse against the full
-              inverse kernel; round trips; median times from CUDA events
+              head, the fused inverse ntt_split_inv, the DIT stages alone
+              ntt_inv_tailed); ntt_fwd and ntt_inv also at the 4-party
+              mult's digit launch (4 x 14 digits x 32 QP limbs x 2^15);
+              the fused forward and head + tail against the full forward
+              kernel, the fused inverse and tail + DIT alone against the
+              full inverse kernel; round trips (the fused inverse of the
+              fused forward among them); median times from CUDA events
               of single launches (`ms`, as in the earlier smoke runs) and
               of the mean of 10 back-to-back launches (`ms_mean10`,
               without the host's launch time), each beside its bound
@@ -50,9 +52,10 @@ Phases, one line each, then two JSON lines:
               and, between them, one 2-party request (user0 x user1) of
               fresh encryptions -> Evaluator.mul_relin_new -> decrypt,
               each exactly equal to the plaintext product mod t; the
-              split's launch counters (the fused forward, the tail, the
-              tailed inverse) must grow and the full kernels' and the
-              head's stay at 0; the last 4-party mult again with the
+              split's launch counters (the fused forward, the fused
+              inverse) must grow and the full kernels', the head's, the
+              tail's and the DIT-alone mode's stay at 0; the last 4-party
+              mult again with the
               switch off, off and on must give the same ciphertext bit for
               bit;
   6. cnn      the two-party encrypted MNIST CNN (models/cnn.py, REF
@@ -103,7 +106,6 @@ BATCH = 8
 SEED = 2024
 NTT_CU = "mkhe_tpu_torch/csrc/ntt.cu"
 SPLIT_CU = "mkhe_tpu_torch/csrc/ntt_split.cu"
-TAIL_CU = "mkhe_tpu_torch/csrc/ntt_tail.cu"
 VARIANT_CU = "mkhe_tpu_torch/csrc/ntt_variant.cu"
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
@@ -111,13 +113,17 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     # the split kernel's fused forward: _fwd_kernel(head_only=True) (:102)
     # and _tail_apply (:266) in one launch
     ("ntt_split_fwd", SPLIT_CU, "mkhe_tpu/ops/ntt_pallas.py:102"),
-    # its tail mode, the split inverse's first launch: _tail_apply
+    # the split inverse kernel's fused mode: _tail_apply (:266) with the
+    # inverse map and _inv_kernel(tail_done=True) (:138) in one launch
+    ("ntt_split_inv", SPLIT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),
+    # the split kernel's tail mode alone: _tail_apply (phase 3 only)
     ("ntt_tail", SPLIT_CU, "mkhe_tpu/ops/ntt_pallas.py:266"),
-    # _inv_kernel(tail_done=True)
-    ("ntt_inv_tailed", TAIL_CU, "mkhe_tpu/ops/ntt_pallas.py:175"),
+    # the split inverse kernel's DIT mode alone: _inv_kernel(tail_done=True)
+    # (phase 3 only)
+    ("ntt_inv_tailed", SPLIT_CU, "mkhe_tpu/ops/ntt_pallas.py:175"),
     ("ntt_variant", VARIANT_CU, "benchmarks/ntt_probe.py:35"),
 )
-MAIN = KERNELS[:5]   # the kernels of phases 4-6
+MAIN = KERNELS[:6]   # the kernels whose launches phases 4-6 count
 
 
 def phase_device() -> dict:
@@ -157,8 +163,9 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
     """Every kernel against its plain version on the card, and the split's
     compositions against the full kernels, at the CKKS and BFV paths'
     logN 15 QP moduli, at logN 10 and at the CNN path's shape (logN 14, its
-    18 QP moduli); ntt_fwd / ntt_inv also at the 4-party mult's digit
-    launch (4 x 14 digits x 32 QP limbs x 2^15). Returns per-kernel
+    18 QP moduli); ntt_fwd / ntt_inv, and the split inverse's fused and
+    DIT modes, also at the 4-party mult's digit launch (4 x 14 digits x
+    32 QP limbs x 2^15). Returns per-kernel
     max_abs_err, the times at logN 15 (batch 8 of the 32 QP limbs) and
     their bounds."""
     gen = torch.Generator(device="cuda")
@@ -170,7 +177,6 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
     for ring in (ring15, ring14, ring10, "digits"):
         digits = ring == "digits"
         ring = ring15 if digits else ring
-        split = not digits
         shape = ((4, 14) if digits else (BATCH,)) + (ring.nlimbs, ring.n)
         q = ring.q[:, None]
         fwd_p = (ring.q, ring.bar, ring.psi, ring.psi_sh)
@@ -195,8 +201,23 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
                      ) + cases
         # round trip
         pairs = [(K.intt(K.ntt(canon, *fwd_t), *inv_t), canon)]
-        if split:
-            st = ring.split_tables()
+        st = ring.split_tables()
+        itail_t = (ring.q, ring.bar, st.iwpack, st.iwpack_sh, st.untwist,
+                   st.untwist_sh)
+        itail_k = itail_t + (st.iwpack_pack, st.untwist_pack)
+        sinv_t = (ring.q, ring.bar, ring.r_inv, st)
+        # the kernel's own tables (the plain versions read the rest)
+        dit_r = (ring.q, st.iwpack_pack[:, :ring.n - 128], st.untwist_pack)
+        reads.update(ntt_split_inv=dit_r + (st.tail_inv_frag, st.tail_pow8),
+                     ntt_inv_tailed=dit_r + (ring.bar,))
+        inv_cases = (
+            ("ntt_inv_tailed", K.intt_tailed, itail_k, K.intt_tailed_plain,
+             itail_t, any32),
+            ("ntt_split_inv", K.ntt_split_inv, sinv_t, K.ntt_split_inv_plain,
+             sinv_t, lazy))
+        if digits:
+            cases += inv_cases
+        else:
             split_t = (ring.q, ring.r_inv, st)
             head_t = (ring.q, st.twist, st.twist_sh, st.wpack, st.wpack_sh,
                       st.twist_pack, st.wpack_pack)
@@ -204,9 +225,6 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
                       st.tail_fwd_frag, st.tail_pow8)
             tinv_t = (ring.q, ring.r_inv, st.tail_inv, st.tail_pow,
                       st.tail_inv_frag, st.tail_pow8)
-            itail_t = (ring.q, ring.bar, st.iwpack, st.iwpack_sh,
-                       st.untwist, st.untwist_sh)
-            # the kernel's own tables (the plain versions read the rest)
             head_r = (ring.q, st.twist_pack, st.wpack_pack[:, :ring.n - 128])
             reads.update(ntt_split_fwd=head_r + (st.tail_fwd_frag,
                                                  st.tail_pow8),
@@ -224,17 +242,25 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
                  any32),
                 ("ntt_fwd_head", K.ntt_head, head_t, K.ntt_head_plain,
                  head_t[:5], any32),
-                ("ntt_inv_tailed", K.intt_tailed, itail_t,
-                 K.intt_tailed_plain, itail_t, any32),
+            ) + inv_cases + (
+                ("ntt_split_inv", K.ntt_split_inv, sinv_t,
+                 K.ntt_split_inv_plain, sinv_t, canon),
+                ("ntt_split_inv", K.ntt_split_inv, sinv_t,
+                 K.ntt_split_inv_plain, sinv_t, any32),
             )
             # the split's compositions against the full kernels
             split_fwd = K.ntt_split_fwd(any32, *split_t)
             pairs += [(split_fwd, K.ntt(any32, *fwd_t)),
                       (K.tail(K.ntt_head(any32, *head_t), *tfwd_t),
                        split_fwd),
-                      (K.intt_tailed(K.tail(lazy, *tinv_t), *itail_t),
+                      (K.intt_tailed(K.tail(lazy, *tinv_t), *itail_k),
                        K.intt(lazy, *inv_t)),
-                      (K.intt_tailed(K.tail(split_fwd, *tinv_t), *itail_t),
+                      (K.intt_tailed(K.tail(split_fwd, *tinv_t), *itail_k),
+                       ring.reduce(any32)),
+                      (K.ntt_split_inv(lazy, *sinv_t), K.intt(lazy, *inv_t)),
+                      (K.ntt_split_inv(any32, *sinv_t),
+                       K.intt(any32, *inv_t)),
+                      (K.ntt_split_inv(split_fwd, *sinv_t),
                        ring.reduce(any32))]
         for name, kern, ktabs, plain, ptabs, x in cases:
             got, want = kern(x, *ktabs), plain(x, *ptabs)
@@ -270,11 +296,13 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
             + ")" for name, r in t.items())
 
     print(f"[3 kernels] mismatches {mism} kernel vs plain (ntt_fwd, ntt_inv,"
-          f" the split kernel's fused forward, tail and head modes and the "
-          f"tailed inverse at logN 15, 14 and 10, ntt_fwd / ntt_inv also at "
-          f"the digit launch; canonical, any-u32 and <8q inputs), "
+          f" the split kernels' fused forward, tail, head, fused inverse "
+          f"and DIT modes at logN 15, 14 and 10, ntt_fwd / ntt_inv also at "
+          f"the digit launch with the split inverse's two modes; "
+          f"canonical, any-u32 and <8q inputs), "
           f"{comp_mism} ntt_split_fwd vs ntt_fwd, head+tail vs "
-          f"ntt_split_fwd, tail+inv_tailed vs ntt_inv and round trips; "
+          f"ntt_split_fwd, ntt_split_inv and tail+inv_tailed vs ntt_inv and "
+          f"round trips; "
           f"median ms at logN 15 batch {BATCH} x {ring15.nlimbs} "
           f"limbs: {show(times['15'])}; logN 14 batch {BATCH} x "
           f"{ring14.nlimbs} limbs (the CNN's QP): {show(times['14'])}; "
@@ -504,11 +532,13 @@ def phase_bfv(params) -> dict:
         ms2 = request(2)[3]
         c0, c1, res_on, ms_on = request(4)
         launches = ntt_cuda.counters()
-        split = ("ntt_split_fwd", "ntt_tail", "ntt_inv_tailed")
-        if (min(launches[k] for k in split) < 1 or launches["ntt_fwd"]
-                or launches["ntt_inv"] or launches["ntt_fwd_head"]):
-            raise AssertionError(f"the BFV path did not run the split: "
-                                 f"{launches}")
+        split = ("ntt_split_fwd", "ntt_split_inv")
+        unsplit = ("ntt_tail", "ntt_inv_tailed", "ntt_fwd_head", "ntt_fwd",
+                   "ntt_inv")
+        if (min(launches[k] for k in split) < 1
+                or any(launches[k] for k in unsplit)):
+            raise AssertionError(f"the BFV path did not run the fused split "
+                                 f"kernels alone: {launches}")
         # the last 4-party mult again, in turns on, off, off, on
         turns = {True: [ms_on], False: []}
         for on in (False, False, True):

@@ -10,7 +10,7 @@ convert.py):
     (slot j holds the evaluation at psi^(2*brv(j)+1));
   - plain tensor code is PyTorch; the negacyclic NTT/iNTT are hand-written
     CUDA kernels (csrc/ntt.cu, and the split form with an int8
-    tensor-core tail in csrc/ntt_tail.cu, config.ntt_mxu_tail) on a CUDA
+    tensor-core tail in csrc/ntt_split.cu, config.ntt_mxu_tail) on a CUDA
     tensor, and their plain PyTorch versions on a CPU tensor
     (ops/ntt_cuda.py).
 

@@ -18,17 +18,21 @@ twiddles. `geometry` sets the launch: polynomials per block (several below
 logN 13), blocks, threads and shared memory, which the kernel checks, and
 the passes per logN, which the kernel works out by the same rule.
 
-The split form of the same transforms (config.ntt_mxu_tail) has two
-kernels. csrc/ntt_split.cu::ntt_split_kernel replaces
+The split form of the same transforms (config.ntt_mxu_tail) is
+csrc/ntt_split.cu, in five modes. ntt_split_kernel replaces
 _fwd_kernel(head_only=True) and the int8 tail map _tail_apply
-(ntt_pallas.py:47-104, 266-312) in three modes: the fused forward
-(`ntt_split_fwd`, Ring.ntt's one launch: head, then the tail on the tensor
-cores, one HBM pass), the tail alone (`tail`, either map) and the head
-alone (`ntt_head`). It reads the packed twist and wpack (`pack_natural`)
-and each limb's tail map in the kernel's fragment order
-(`tail_fragments`: 4 u8 digit planes). csrc/ntt_tail.cu::
-ntt_inv_tailed_kernel replaces _inv_kernel(tail_done=True) (:159-175):
-`intt_tailed`. The tables live in `SplitTables` (built by ops/ring.py).
+(ntt_pallas.py:47-104, 266-312): the fused forward (`ntt_split_fwd`,
+Ring.ntt's one launch: head, then the tail on the tensor cores, one HBM
+pass), the tail alone (`tail`, either map) and the head alone
+(`ntt_head`). ntt_split_inv_kernel replaces _tail_apply with the inverse
+map and _inv_kernel(tail_done=True) (:138-225): the fused inverse
+(`ntt_split_inv`, Ring.intt's one launch: the tail in place in shared
+memory, then the DIT stages, one HBM pass) and the DIT stages alone
+(`intt_tailed`). They read the packed twist, wpack, untwist and iwpack
+(`pack_natural`) and each limb's tail map in the kernel's fragment order
+(`tail_fragments`: 4 u8 digit planes); `tail_schedule` and
+`split_inv_passes` are the inverse's work split, for the tests. The
+tables live in `SplitTables` (built by ops/ring.py).
 
 The kernel of csrc/ntt_variant.cu replaces the NTT cost probe's
 benchmarks/ntt_probe.py::_variant_kernel: `ntt_variant`, a forward NTT in
@@ -40,8 +44,8 @@ packed twiddles (natural order, `pack_natural`), for the settings of
 Every wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version (`ntt_plain` / `intt_plain`, the int64 transliteration of
 the JAX package's jnp path, mkhe_tpu/ops/ring.py:377-440; `ntt_head_plain`
-/ `tail_plain` / `ntt_split_fwd_plain` / `intt_tailed_plain`, those of the
-Pallas split); a CUDA
+/ `tail_plain` / `ntt_split_fwd_plain` / `intt_tailed_plain` /
+`ntt_split_inv_plain`, those of the Pallas split); a CUDA
 tensor launches the kernel or raises. There is no fallback from one to the
 other.
 
@@ -57,6 +61,7 @@ import ctypes
 import dataclasses
 import functools
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -94,14 +99,16 @@ tail_launches = 0
 inv_tailed_launches = 0
 variant_launches = 0
 split_fwd_launches = 0
+split_inv_launches = 0
 
 
 def reset_counters() -> None:
     global fwd_launches, inv_launches, head_launches, tail_launches
     global inv_tailed_launches, variant_launches, split_fwd_launches
+    global split_inv_launches
     fwd_launches = inv_launches = 0
     head_launches = tail_launches = inv_tailed_launches = 0
-    variant_launches = split_fwd_launches = 0
+    variant_launches = split_fwd_launches = split_inv_launches = 0
 
 
 def counters() -> dict:
@@ -110,7 +117,8 @@ def counters() -> dict:
             "ntt_fwd_head": head_launches, "ntt_tail": tail_launches,
             "ntt_inv_tailed": inv_tailed_launches,
             "ntt_variant": variant_launches,
-            "ntt_split_fwd": split_fwd_launches}
+            "ntt_split_fwd": split_fwd_launches,
+            "ntt_split_inv": split_inv_launches}
 
 
 # ----------------------------------------------------------------------------
@@ -177,10 +185,20 @@ def build() -> str:
     return "".join(logs)
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    name (`ntt_split_inv_kernel<15,1>`), else the name's last 45
+    characters."""
+    m = re.search(r"\d+([a-z][a-z_]*kernel)I((?:L[a-z]\d+E)+)E", mangled)
+    if not m:
+        return mangled[-45:]
+    return f"{m.group(1)}<{','.join(re.findall(r'L[a-z](\d+)E', m.group(2)))}>"
+
+
 def ptxas_lines(log: str) -> list:
-    """Each kernel's name (its last 45 characters), then its spills and
-    registers, from build()'s compiler output."""
-    return [ln.split("'")[1][-45:] if "Compiling entry" in ln
+    """Each kernel's name (`kernel_name`), then its spills and registers,
+    from build()'s compiler output."""
+    return [kernel_name(ln.split("'")[1]) if "Compiling entry" in ln
             else ln.split("ptxas info    :")[-1].strip()
             for ln in log.splitlines()
             if "Compiling entry" in ln or "spill" in ln or "registers" in ln]
@@ -196,10 +214,8 @@ def load() -> ctypes.CDLL:
     lib.mkhe_ntt_fwd.restype = ci
     lib.mkhe_ntt_inv.argtypes = [vp] * 7 + [ci] * 7 + [vp]
     lib.mkhe_ntt_inv.restype = ci
-    lib.mkhe_ntt_split.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    lib.mkhe_ntt_split.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     lib.mkhe_ntt_split.restype = ci
-    lib.mkhe_ntt_inv_tailed.argtypes = [vp] * 8 + [ci, ci, ci, vp]
-    lib.mkhe_ntt_inv_tailed.restype = ci
     lib.mkhe_ntt_variant.argtypes = [vp] * 5 + [ci] * 11 + [vp]
     lib.mkhe_ntt_variant.restype = ci
     return lib
@@ -401,13 +417,12 @@ def _check_tail(x, q, r_inv, mat, pw, frag=None, pw8=None):
     return shape
 
 
-def _check_packs(x, shape, twist_pack, wpack_pack):
-    """The head's packed (L, N) int64 twist and wpack (`pack_natural`),
-    where given, 16-byte aligned."""
+def _check_packs(x, shape, **packs):
+    """The split kernel's packed (L, N) int64 tables (`pack_natural`) given
+    by name, where not None, 16-byte aligned."""
     L, n = shape[1], 1 << shape[2]
-    _check_tables(x, {"packed twist": (twist_pack, (L, n), torch.int64),
-                      "packed wpack": (wpack_pack, (L, n), torch.int64)},
-                  align=16)
+    _check_tables(x, {f"packed {name}": (t, (L, n), torch.int64)
+                      for name, t in packs.items()}, align=16)
 
 
 def _launch(fn, x, args, shape, extra=()):
@@ -491,7 +506,8 @@ class SplitTables:
     of the tail map M, out = x @ M on each 128-lane block; tail_pow: (L, 9)
     int64, 2^(7t+32) mod q. These equal the JAX package's tables of the
     same names and serve the plain versions. The split kernel reads:
-    twist_pack / wpack_pack, (L, N) int64 w | w_sh << 32 (`pack_natural`);
+    twist_pack / wpack_pack / untwist_pack / iwpack_pack, (L, N) int64
+    w | w_sh << 32 (`pack_natural`);
     tail_fwd_frag / tail_inv_frag, (L, *FRAG_SHAPE) uint8, each limb's map
     in 4 base-2^8 planes in fragment order (`tail_fragments`); tail_pow8,
     (L, 7) int64, 2^(8t+32) mod q."""
@@ -508,6 +524,8 @@ class SplitTables:
     tail_pow: torch.Tensor
     twist_pack: torch.Tensor
     wpack_pack: torch.Tensor
+    untwist_pack: torch.Tensor
+    iwpack_pack: torch.Tensor
     tail_fwd_frag: torch.Tensor
     tail_inv_frag: torch.Tensor
     tail_pow8: torch.Tensor
@@ -530,15 +548,52 @@ def tail_fragments(m: np.ndarray) -> np.ndarray:
             ).astype(np.uint8)
 
 
-_HEAD, _TAIL = 1, 2   # mode bits of mkhe_ntt_split
+_HEAD, _TAIL, _INV = 1, 2, 4   # mode bits of mkhe_ntt_split
+
+
+def tail_schedule(logn: int):
+    """How the split inverse's tail (csrc/ntt_split.cu::tail_rows_in_place)
+    deals its work at logN: (items, split). items[w] lists warp w's items
+    in order, each (row tile, first n-tile, n-tiles); split > 1: that many
+    warps share each row tile, each warp has one item, and a block barrier
+    stands between all reads and all writes; split = 1: each row tile is
+    one warp's, with a __syncwarp between its reads and its writes."""
+    warps = split_threads(logn) // 32
+    row_tiles = ((1 << logn) // TAIL_LANES + 15) // 16
+    split = warps // row_tiles if warps > row_tiles else 1
+    tiles = TAIL_LANES // 8 // split
+    items = [[(it // split, it % split * tiles, tiles)
+              for it in range(w, row_tiles * split, warps)]
+             for w in range(warps)]
+    return items, split
+
+
+def split_threads(logn: int) -> int:
+    """Threads of a split kernel's block (one polynomial):
+    max(128, min(512, N / 32))."""
+    return max(128, min(512, (1 << logn) >> 5))
+
+
+def split_inv_passes(logn: int) -> list:
+    """(lo, R) of the split inverse's DIT register passes from bit 7 up:
+    (logN - 7) mod MAX_PASS_BITS bits first where that is not 0, then
+    MAX_PASS_BITS each (csrc/ntt_split.cu::dit_passes)."""
+    lo, rest, out = 7, (logn - 7) % MAX_PASS_BITS, []
+    while lo < logn:
+        r = rest if lo == 7 and rest else MAX_PASS_BITS
+        out.append((lo, r))
+        lo += r
+    return out
 
 
 def _launch_split(x, shape, mode, q, twist_pack=None, wpack_pack=None,
-                  frag=None, pw8=None):
-    if mode == _TAIL and x.data_ptr() % 16:   # read in 16-byte pairs
+                  frag=None, pw8=None, bar=None):
+    # every mode but the head reads x in 16-byte pairs
+    if mode != _HEAD and x.data_ptr() % 16:
         x = x.clone()
     return _launch(load().mkhe_ntt_split, x,
-                   (twist_pack, wpack_pack, frag, pw8, q), shape, (mode,))
+                   (twist_pack, wpack_pack, frag, pw8, q, bar), shape,
+                   (mode,))
 
 
 def _need(x, tables, what):
@@ -558,7 +613,7 @@ def ntt_head(x, q, twist, twist_sh, wpack, wpack_sh, twist_pack=None,
     global head_launches
     shape = _check(x, (twist, twist_sh, wpack, wpack_sh), (q,),
                    min_logn=SPLIT_MIN_LOGN)
-    _check_packs(x, shape, twist_pack, wpack_pack)
+    _check_packs(x, shape, twist=twist_pack, wpack=wpack_pack)
     if not _device_route(x):
         return ntt_head_plain(x, q, twist, twist_sh, wpack, wpack_sh)
     _need(x, (twist_pack, wpack_pack), "twist_pack and wpack_pack")
@@ -595,12 +650,34 @@ def ntt_split_fwd(x, q, r_inv, t: SplitTables):
                    min_logn=SPLIT_MIN_LOGN)
     _check_tail(x, q, r_inv, t.tail_fwd, t.tail_pow, t.tail_fwd_frag,
                 t.tail_pow8)
-    _check_packs(x, shape, t.twist_pack, t.wpack_pack)
+    _check_packs(x, shape, twist=t.twist_pack, wpack=t.wpack_pack)
     if not _device_route(x):
         return ntt_split_fwd_plain(x, q, r_inv, t)
     out = _launch_split(x, shape, _HEAD | _TAIL, q, t.twist_pack,
                         t.wpack_pack, t.tail_fwd_frag, t.tail_pow8)
     split_fwd_launches += 1
+    return out
+
+
+def ntt_split_inv(x, q, bar, r_inv, t: SplitTables):
+    """The split inverse NTT over (..., L, N), any u32 input (the lazy < 8q
+    inputs of the key-switch pipeline in particular) -> canonical,
+    standard order: the tail with the inverse map, then the DIT stages
+    h = 128 .. N/2 and the untwist. On a CUDA tensor one launch of the
+    split inverse kernel's fused mode (it reads q, t.tail_inv_frag,
+    t.tail_pow8, t.iwpack_pack and t.untwist_pack); on a CPU tensor
+    `ntt_split_inv_plain`."""
+    global split_inv_launches
+    shape = _check(x, (t.iwpack, t.iwpack_sh, t.untwist, t.untwist_sh),
+                   (q, bar), min_logn=SPLIT_MIN_LOGN)
+    _check_tail(x, q, r_inv, t.tail_inv, t.tail_pow, t.tail_inv_frag,
+                t.tail_pow8)
+    _check_packs(x, shape, untwist=t.untwist_pack, iwpack=t.iwpack_pack)
+    if not _device_route(x):
+        return ntt_split_inv_plain(x, q, bar, r_inv, t)
+    out = _launch_split(x, shape, _INV | _TAIL, q, t.untwist_pack,
+                        t.iwpack_pack, t.tail_inv_frag, t.tail_pow8)
+    split_inv_launches += 1
     return out
 
 
@@ -685,19 +762,24 @@ def ntt_variant(x, t: VariantTables, *, stages: int, exchange: bool = True,
     return out
 
 
-def intt_tailed(x, q, bar, iwpack, iwpack_sh, untwist, untwist_sh):
+def intt_tailed(x, q, bar, iwpack, iwpack_sh, untwist, untwist_sh,
+                iwpack_pack=None, untwist_pack=None):
     """Rest of the split inverse NTT after `tail` with the inverse map:
     the DIT stages with half-block h = 128 .. N/2, then the untwist by
-    psi^-j / N. Any u32 input, canonical standard-order output. Kernel on
-    a CUDA tensor, plain version on a CPU tensor."""
+    psi^-j / N. Any u32 input, canonical standard-order output. The split
+    inverse kernel's DIT mode on a CUDA tensor (it reads q, bar and the
+    packed iwpack_pack and untwist_pack, SplitTables), plain version on a
+    CPU tensor (it reads the natural tables)."""
     global inv_tailed_launches
     shape = _check(x, (iwpack, iwpack_sh, untwist, untwist_sh), (q, bar),
                    min_logn=SPLIT_MIN_LOGN)
+    _check_packs(x, shape, iwpack=iwpack_pack, untwist=untwist_pack)
     if not _device_route(x):
         return intt_tailed_plain(x, q, bar, iwpack, iwpack_sh, untwist,
                                  untwist_sh)
-    out = _launch(load().mkhe_ntt_inv_tailed, x,
-                  (iwpack, iwpack_sh, untwist, untwist_sh, q, bar), shape)
+    _need(x, (iwpack_pack, untwist_pack), "iwpack_pack and untwist_pack")
+    out = _launch_split(x, shape, _INV, q, untwist_pack, iwpack_pack,
+                        bar=bar)
     inv_tailed_launches += 1
     return out
 
@@ -836,6 +918,14 @@ def tail_plain(x, q, r_inv, mat, pw):
     r = (acc % qq) * r_inv[:, None, None] % qq
     return r.reshape(L, -1, n // TAIL_LANES, TAIL_LANES).transpose(0, 1) \
         .reshape(x.shape).contiguous()
+
+
+def ntt_split_inv_plain(x, q, bar, r_inv, t: SplitTables):
+    """The split inverse NTT as its two plain parts: intt_tailed_plain of
+    tail_plain (inverse map)."""
+    tailed = tail_plain(x, q, r_inv, t.tail_inv, t.tail_pow)
+    return intt_tailed_plain(tailed, q, bar, t.iwpack, t.iwpack_sh,
+                             t.untwist, t.untwist_sh)
 
 
 def intt_tailed_plain(x, q, bar, iwpack, iwpack_sh, untwist, untwist_sh):

@@ -14,13 +14,14 @@ take the split form instead (mkhe_tpu/ops/ntt_pallas.py:9-17, 266-312):
   ntt  = head (twist by psi^j, DIF stages with half-block h >= 128)
          -> tail (the stages h = 64 .. 1 as one 128x128 map per limb),
          one launch of the fused split kernel on a CUDA tensor;
-  intt = tail (DIT stages h = 1 .. 64) -> DIT stages h >= 128 + untwist.
+  intt = tail (DIT stages h = 1 .. 64) -> DIT stages h >= 128 + untwist,
+         one launch of the fused split inverse kernel on a CUDA tensor.
 
 The split's tables (twist, untwist, the stage-packed wpack / iwpack with
 their Shoup companions, and the tail maps as int8 digit planes) equal the
 JAX package's of the same names (mkhe_tpu/ops/ring.py:77-212); beside
-them SplitTables holds the split kernel's own (packed twist and wpack,
-the maps as u8 planes in fragment order). They are built only when the
+them SplitTables holds the split kernels' own (packed twist, wpack,
+untwist and iwpack, the maps as u8 planes in fragment order). They are built only when the
 split is first used, from a cache keyed on (moduli, logn, device), so
 rings made by take / concat get them too.
 
@@ -191,7 +192,7 @@ def _limb_split_tables(q: int, logn: int) -> dict:
                % np.uint64(q), wpack=wpack, iwpack=iwpack)
     for k in list(out):
         out[k + "_sh"] = _shoup_vec(out[k], q)
-    for k in ("twist", "wpack"):   # the split kernel's packed forms
+    for k in ("twist", "wpack", "untwist", "iwpack"):   # the kernel's
         out[k + "_pack"] = ntt_cuda.pack_natural(out[k], out[k + "_sh"], (q,))
     out = {k: v.astype(np.int64) for k, v in out.items()}
     fwd_m, inv_m = _tail_maps(q, logn, wpack, iwpack)
@@ -330,12 +331,8 @@ class Ring:
         inputs of the JAX package's intt(reduce_input=True)."""
         a = a.contiguous()
         if self._split():
-            t = self.split_tables()
-            tailed = ntt_cuda.tail(a, self.q, self.r_inv, t.tail_inv,
-                                   t.tail_pow, t.tail_inv_frag, t.tail_pow8)
-            return ntt_cuda.intt_tailed(tailed, self.q, self.bar, t.iwpack,
-                                        t.iwpack_sh, t.untwist,
-                                        t.untwist_sh)
+            return ntt_cuda.ntt_split_inv(a, self.q, self.bar, self.r_inv,
+                                          self.split_tables())
         return ntt_cuda.intt(a, self.q, self.bar, self.ipsi, self.ipsi_sh,
                              self.ninv, self.ninv_sh, self.ipsi_pack)
 

@@ -14,11 +14,11 @@ Variants: `new` (this checkout's Ring.ntt / Ring.intt) and, with
 --other, `old`: those of another checkout (e.g. the parent commit
 unpacked with `git archive` into build/), loaded beside this one in the
 same process (profile_ab.load_other) with its own kernels and tables.
-With --split, config.ntt_mxu_tail is on for both checkouts (the split
-forward: csrc/ntt_split.cu's fused kernel here, the parent's head + tail
-there; the split inverse: tail + tailed inverse), and a third variant,
-`full`, is this checkout's unsplit Ring.ntt / Ring.intt (csrc/ntt.cu); the
-bound is the split path's (ntt_split_fwd; ntt_tail + ntt_inv_tailed).
+With --split, config.ntt_mxu_tail is on for both checkouts (whatever
+each launches for Ring.ntt / Ring.intt: here csrc/ntt_split.cu's fused
+forward and fused inverse, one launch each), and a third variant, `full`,
+is this checkout's unsplit Ring.ntt / Ring.intt (csrc/ntt.cu); the bound
+is this checkout's split path's (ntt_split_fwd; ntt_split_inv).
 Each variant's output must equal the new one's bit for bit (and the plain
 version's at pn15). Times are medians of `reps` CUDA-event timings per
 turn, each the mean of 10 back-to-back calls, the variants in turns old,
@@ -77,10 +77,11 @@ def kernel_bound(name: str, x, tables, stages: int = 0, mul: bool = True):
     and constant read once; 6 int32 operations a butterfly (three
     products, three sums), 3 a coefficient for the Barrett reduction and 4
     for each multiply by a per-coefficient or per-limb constant (twist,
-    untwist, N^-1); the split kernel's tail (ntt_tail, and after the head in
-    ntt_split_fwd): 16 u8 digit-plane products (2 x 128 int8 operations a
-    coefficient each) and the recombination of 7 partial sums (3 a term,
-    6 for the Montgomery step).
+    untwist, N^-1); the split kernel's tail (ntt_tail, after the head in
+    ntt_split_fwd, before the DIT stages in ntt_split_inv): 16 u8
+    digit-plane products (2 x 128 int8 operations a coefficient each) and
+    the recombination of 7 partial sums (3 a term, 6 for the Montgomery
+    step).
     "ntt_variant" (the probe's transform, `stages` DIF stages, twiddle
     multiplies if `mul`): 6 a butterfly of a stage with a multiply (every
     stage but h = 1 when mul), 3 (the sums) a butterfly of one without, and
@@ -100,9 +101,10 @@ def kernel_bound(name: str, x, tables, stages: int = 0, mul: bool = True):
            "ntt_inv_tailed": 6 * bfly * (logn - 7) + 7 * n,
            "ntt_tail": recomb * n,
            "ntt_split_fwd": 6 * bfly * (logn - 7) + 4 * n + recomb * n,
+           "ntt_split_inv": 6 * bfly * (logn - 7) + 4 * n + recomb * n,
            "ntt_variant": 6 * bfly * muls + 3 * bfly * (stages - muls)
            + 4 * n}[name]
-    if name in ("ntt_tail", "ntt_split_fwd"):
+    if name in ("ntt_tail", "ntt_split_fwd", "ntt_split_inv"):
         int8 = ntt_cuda.FRAG_PLANES ** 2 * 2 * ntt_cuda.TAIL_LANES * n
     return bound(nbytes, ops, int8)
 
@@ -161,21 +163,17 @@ def _switched(cfg, on: bool, fn):
 
 
 def split_bound(ring, inp, fwd: bool):
-    """The split path's bound on inp: the fused forward's, or the tail's
-    and the tailed inverse's summed; each kernel counts the tables it
-    reads (the head only the wpack entries of its stages)."""
+    """The split path's bound on inp: the fused forward's or the fused
+    inverse's; each counts the tables it reads (the stages only the wpack
+    or iwpack entries h >= 128 take)."""
     st = ring.split_tables()
     if fwd:
         return kernel_bound("ntt_split_fwd", inp, (
             ring.q, st.twist_pack, st.wpack_pack[:, :ring.n - 128],
             st.tail_fwd_frag, st.tail_pow8))
-    parts = (kernel_bound("ntt_tail", inp, (ring.q, st.tail_inv_frag,
-                                            st.tail_pow8)),
-             kernel_bound("ntt_inv_tailed", inp, (
-                 ring.q, ring.bar, st.iwpack, st.iwpack_sh, st.untwist,
-                 st.untwist_sh)))
-    bys = {by for _, by in parts}
-    return sum(ms for ms, _ in parts), "/".join(sorted(bys))
+    return kernel_bound("ntt_split_inv", inp, (
+        ring.q, st.untwist_pack, st.iwpack_pack[:, :ring.n - 128],
+        st.tail_inv_frag, st.tail_pow8))
 
 
 def run(reps: int, other=None, split: bool = False) -> dict:

@@ -1,6 +1,6 @@
 """The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, the split NTT's
-kernel in csrc/ntt_split.cu in its three modes and its tailed inverse in
-csrc/ntt_tail.cu, and the NTT cost probe's variant in csrc/ntt_variant.cu) against their plain PyTorch versions on
+kernels in csrc/ntt_split.cu in their five modes, and the NTT cost probe's
+variant in csrc/ntt_variant.cu) against their plain PyTorch versions on
 the card, bit for bit; and rotation, conjugation and
 the CNN pipeline on the card against the same calls on the CPU. Needs an
 NVIDIA GPU and nvcc; without a card every test skips. This file imports
@@ -125,10 +125,10 @@ def _split_args(ring):
     head = (ring.q, t.twist, t.twist_sh, t.wpack, t.wpack_sh, t.twist_pack,
             t.wpack_pack)
     inv = (ring.q, ring.bar, t.iwpack, t.iwpack_sh, t.untwist, t.untwist_sh)
-    return t, head, inv
+    return t, head, inv, inv + (t.iwpack_pack, t.untwist_pack)
 
 
-@pytest.mark.parametrize("logn", [8, 9, 10, 12, 14, 15])
+@pytest.mark.parametrize("logn", range(8, 16))
 def test_split_kernels_match_plain(gen, logn):
     """The split kernel's fused forward, head and tail (both maps) and the
     tailed inverse against their plain versions; the fused forward and
@@ -136,7 +136,7 @@ def test_split_kernels_match_plain(gen, logn):
     ntt_inv_kernel, the round trip; canonical, any-u32 (with 2^32 - 1
     extremes) and < 8q inputs, 6 polynomials a limb."""
     ring = _ring(logn)
-    t, head, inv = _split_args(ring)
+    t, head, inv, inv_k = _split_args(ring)
     q = ring.q[:, None]
     shape = (2, 3, ring.nlimbs, ring.n)
     fwd_t, _, inv_t, _ = _full_args(ring)
@@ -161,7 +161,7 @@ def test_split_kernels_match_plain(gen, logn):
     assert torch.equal(fwd, ntt_cuda.ntt(x, *fwd_t))
     tailed = ntt_cuda.tail(y, ring.q, ring.r_inv, t.tail_inv, t.tail_pow,
                            t.tail_inv_frag, t.tail_pow8)
-    got = ntt_cuda.intt_tailed(tailed, *inv)
+    got = ntt_cuda.intt_tailed(tailed, *inv_k)
     assert torch.equal(got, ntt_cuda.intt_tailed_plain(tailed, *inv))
     assert torch.equal(got, ntt_cuda.intt(y, *inv_t))
     from mkhe_tpu_torch import config
@@ -173,9 +173,38 @@ def test_split_kernels_match_plain(gen, logn):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("logn", range(8, 16))
+def test_split_inv_matches_plain(gen, logn):
+    """The split inverse kernel's fused mode (ntt_split_inv) and DIT-alone
+    mode (intt_tailed) against their plain versions on canonical, < 8q
+    and any-u32 inputs with the extremes 0, q - 1 and 2^32 - 1; the fused
+    inverse equals ntt_inv_kernel bit for bit, and undoes the fused
+    forward."""
+    ring = _ring(logn)
+    t, _, inv, inv_k = _split_args(ring)
+    q = ring.q[:, None]
+    shape = (2, 3, ring.nlimbs, ring.n)
+    split = (ring.q, ring.bar, ring.r_inv, t)
+    inv_t = _full_args(ring)[2]
+    canon = _rand(gen, shape, q)
+    x = _rand(gen, shape, 1 << 32)
+    x[0, 0, :, :100] = 0
+    x[0, 1, :, :100] = (q - 1).expand(-1, 100)
+    x[1, 0, :, :300] = (1 << 32) - 1
+    for inp in (canon, _rand(gen, shape, 8 * q), x):
+        got = ntt_cuda.ntt_split_inv(inp, *split)
+        assert torch.equal(got, ntt_cuda.ntt_split_inv_plain(inp, *split))
+        assert torch.equal(got, ntt_cuda.intt(inp, *inv_t))
+        assert torch.equal(ntt_cuda.intt_tailed(inp, *inv_k),
+                           ntt_cuda.intt_tailed_plain(inp, *inv))
+    fwd = ntt_cuda.ntt_split_fwd(canon, ring.q, ring.r_inv, t)
+    assert torch.equal(ntt_cuda.ntt_split_inv(fwd, *split), canon)
+    torch.cuda.synchronize()
+
+
 def test_split_routing_and_counters(gen):
-    """With config.ntt_mxu_tail the ring runs the fused forward (one
-    launch) and tail -> tailed inverse, and only kernel launches count."""
+    """With config.ntt_mxu_tail the ring runs the fused forward and the
+    fused inverse (one launch each), and only kernel launches count."""
     from mkhe_tpu_torch import config
     ring = _ring(10)
     x = _rand(gen, (ring.nlimbs, ring.n), ring.q[:, None])
@@ -189,9 +218,9 @@ def test_split_routing_and_counters(gen):
         config.ntt_mxu_tail = False
     assert torch.equal(got, want) and torch.equal(back, x)
     assert ntt_cuda.counters() == {"ntt_fwd": 0, "ntt_inv": 0,
-                                   "ntt_fwd_head": 0, "ntt_tail": 1,
-                                   "ntt_inv_tailed": 1, "ntt_variant": 0,
-                                   "ntt_split_fwd": 1}
+                                   "ntt_fwd_head": 0, "ntt_tail": 0,
+                                   "ntt_inv_tailed": 0, "ntt_variant": 0,
+                                   "ntt_split_fwd": 1, "ntt_split_inv": 1}
 
 
 def test_split_wrappers_raise_on_cuda(gen):
@@ -200,10 +229,12 @@ def test_split_wrappers_raise_on_cuda(gen):
     raises; a CUDA tensor never reaches a plain version."""
     import dataclasses
     ring = _ring(10)
-    t, head, _ = _split_args(ring)
+    t, head, inv, _ = _split_args(ring)
     x = _rand(gen, (ring.nlimbs, ring.n), 1 << 32)
     with pytest.raises(ValueError, match="reads"):
         ntt_cuda.ntt_head(x, *head[:5])
+    with pytest.raises(ValueError, match="reads"):
+        ntt_cuda.intt_tailed(x, *inv)
     with pytest.raises(ValueError, match="reads"):
         ntt_cuda.tail(x, ring.q, ring.r_inv, t.tail_inv, t.tail_pow)
     flat = torch.zeros(t.tail_fwd_frag.numel() + 1, dtype=torch.uint8,
@@ -221,7 +252,10 @@ def test_split_wrappers_raise_on_cuda(gen):
     ntt_cuda.reset_counters()
     ntt_cuda.ntt_split_fwd(x, ring.q, ring.r_inv, t)
     ntt_cuda.ntt_split_fwd_plain(x, ring.q, ring.r_inv, t)
+    ntt_cuda.ntt_split_inv(x, ring.q, ring.bar, ring.r_inv, t)
+    ntt_cuda.ntt_split_inv_plain(x, ring.q, ring.bar, ring.r_inv, t)
     assert ntt_cuda.counters()["ntt_split_fwd"] == 1
+    assert ntt_cuda.counters()["ntt_split_inv"] == 1
     torch.cuda.synchronize()
 
 
