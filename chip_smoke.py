@@ -73,7 +73,27 @@ Phases, one line each, then two JSON lines:
               the conjugate; the NTT launch counters must grow; the
               key-switched rotations of the requests are counted
               (profile_cnn.count_rotations).
-Then {"kernels": [...]} (launches summed over phases 4-6, ntt_variant's
+  7. fused    the runtime tier at full width (fuse.py, the CNN's
+              build_fused_inference, the batched mults), every replay on
+              inputs that are not the capture's: CKKS PN15QP880, 4
+              parties, fuse of mul_relin_new, three fresh requests each
+              equal to eager mul_relin_new bit for bit and within phase
+              4's bound, eager and replay ms in turns (CUDA events);
+              fuse_chained (sum feedback) at k = 1 and 4 equal to the
+              eager chain, and the slope (t(4) - t(1)) / 3; the batched
+              mult at B = 1, 2 and 4, each output equal to mul_relin_new,
+              ms per mult; BFV PN15QP880 with the split on: fuse of mult +
+              add equal to staged, and the batched mult at B = 2 equal to
+              pair by pair; the CNN (PN14QP433_CNN, REF): build_fused_
+              inference with profile_cnn.setup's model, three fresh images
+              each equal to the staged pipeline bit for bit and within the
+              logit gate, staged and replay ms in turns, the capture's
+              time and peak memory; the NTT launches captured into the
+              graphs (more than 0) and the graph replays: the counters
+              count wrapper calls, so they see the captures and not the
+              replays.
+Then {"kernels": [...]} (launches summed over phases 4-6, as before phase
+7 existed, so phase 7's captured launches are not in them; ntt_variant's
 from phase 3b's probe run: the wrapper's launches, those captured into
 its CUDA graphs (profile_ntt.graph_ms) included and the graphs' replays,
 which run without the wrapper, not; times, bounds and plain times, all single
@@ -91,12 +111,13 @@ import math
 import statistics
 import subprocess
 import time
+import types
 
 import numpy as np
 import torch
 
-from mkhe_tpu_torch import (config, mkbfv, mkckks, mkrlwe, ntt_probe,
-                            profile_cnn, profile_ntt)
+from mkhe_tpu_torch import (config, fuse, mkbfv, mkckks, mkrlwe,
+                            ntt_probe, profile_cnn, profile_ntt)
 from mkhe_tpu_torch.models import cnn
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
@@ -641,6 +662,238 @@ def phase_cnn(params) -> dict:
     return launches
 
 
+def _timed(fn):
+    """(fn(), its ms from CUDA events on the current stream)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _same_ct(got, want, what: str) -> None:
+    """ids, scale (CKKS) and data bit for bit, else AssertionError."""
+    g = getattr(got, "ct", got)
+    w = getattr(want, "ct", want)
+    if not (g.ids == w.ids and getattr(got, "scale", None)
+            == getattr(want, "scale", None) and torch.equal(g.data, w.data)):
+        raise AssertionError(f"{what}: the replay differs from eager")
+
+
+def phase_fused(params, params_bfv, params_cnn) -> dict:
+    """The runtime tier (fuse.py, build_fused_inference, the batched
+    mults) at full width: every replay on inputs that are not the
+    capture's, bit for bit against eager or staged, and the CKKS and CNN
+    gates. Returns the NTT launches captured into the graphs."""
+    users = [f"user{i}" for i in range(4)]
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ntt_cuda.reset_counters()
+    replays = 0
+    captured = {}
+
+    def note(fn):
+        for k, v in fn.launches.items():
+            captured[k] = captured.get(k, 0) + v
+
+    # -- CKKS PN15QP880, 4 parties: fuse, fuse_chained, the batch --------
+    kgen = mkrlwe.KeyGenerator(params.rlwe, seed=SEED + 41)
+    sks, rlk, pks = mkrlwe.SecretKeySet(), mkrlwe.RelinearizationKeySet(), {}
+    for uid in users:
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        sks.add(sk)
+        rlk.add(kgen.gen_relinearization_key(sk, kgen.gen_secret_key(uid)))
+    enc = mkckks.Encryptor(params, seed=SEED + 42)
+    dec, ev = mkckks.Decryptor(params), mkckks.Evaluator(params)
+    rng = np.random.default_rng(SEED + 43)
+    bound = -math.log2(params.scale) + params.logslots + 12
+
+    def operands():
+        """phase 4's request: the running sum and difference of four
+        fresh encryptions, and the product they decrypt to."""
+        msgs = [rng.uniform(0.025, 0.25, params.slots)
+                + 1j * rng.uniform(0.025, 0.25, params.slots)
+                for _ in users]
+        cts = [enc.encrypt_msg(mkckks.Message(value=m), pks[u])
+               for m, u in zip(msgs, users)]
+        ct0 = ct1 = cts[0]
+        for c in cts[1:]:
+            ct0, ct1 = ev.add_new(ct0, c), ev.sub_new(ct1, c)
+        return ct0, ct1, sum(msgs) * (msgs[0] - sum(msgs[1:]))
+
+    def mult(ev, keys, a, b):
+        return ev.mul_relin_new(a, b, keys.rlk)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn, args = fuse.fuse(params, mult, operands()[:2], rlk_set=rlk)
+    torch.cuda.synchronize()
+    mult_setup_s, mult_capture_s = time.perf_counter() - t0, fn.capture_s
+    note(fn)
+    eager_ms, replay_ms, errs = [], [], []
+    for _ in range(3):
+        a, b, want_msg = operands()
+        want, ms = _timed(lambda: ev.mul_relin_new(a, b, rlk))
+        eager_ms.append(ms)
+        got, ms = _timed(lambda: fn(args[0], args[1], (a, b)))
+        replay_ms.append(ms)
+        replays += 1
+        _same_ct(got, want, "fused CKKS mult")
+        err = float(np.max(np.abs(dec.decrypt(got, sks).value - want_msg)))
+        errs.append(math.log2(max(err, 1e-300)))
+        if not errs[-1] <= bound:
+            raise AssertionError(f"fused CKKS mult: log2 err {errs[-1]:.2f}"
+                                 f" (bound {bound:.2f})")
+    mult_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    del fn, args
+
+    def chain(cts, out):
+        """bench.py's sum feedback (benchmarks/_timing.py): the whole
+        output's sum mod 2^32 XORed into the first input."""
+        a = cts[0]
+        w = out.ct.data.sum() & 0xFFFFFFFF
+        return (mkckks.Ciphertext(ct=mkrlwe.Ciphertext(
+            ids=a.ids, data=a.ct.data ^ w), scale=a.scale), cts[1])
+
+    run_k, kargs = fuse.fuse_chained(params, mult, operands()[:2], chain,
+                                     rlk_set=rlk)
+    note(run_k.fused)
+    cts = operands()[:2]
+    t_k = {1: [], 4: []}
+    for k in (1, 4, 4, 1, 1, 4):
+        got, ms = _timed(lambda: run_k(kargs[0], kargs[1], cts, k))
+        replays += k + 1
+        t_k[k].append(ms)
+        c = cts
+        for _ in range(k):
+            c = chain(c, ev.mul_relin_new(*c, rlk))
+        _same_ct(got, ev.mul_relin_new(*c, rlk), f"fuse_chained k={k}")
+    slope = (statistics.median(t_k[4]) - statistics.median(t_k[1])) / 3
+    del run_k, kargs
+
+    batch_ms = {1: [], 2: [], 4: []}
+    for bsz in (1, 2, 4, 4, 2, 1):
+        ops = [operands() for _ in range(bsz)]
+        outs, ms = _timed(lambda: ev.mul_relin_batched_new(
+            [o[0] for o in ops], [o[1] for o in ops], rlk))
+        batch_ms[bsz].append(ms / bsz)
+        for got, (a, b, _) in zip(outs, ops):
+            _same_ct(got, ev.mul_relin_new(a, b, rlk),
+                     f"batched CKKS mult at B = {bsz}")
+        del outs, ops
+    del kgen, sks, rlk, pks, enc, dec, ev
+
+    # -- BFV PN15QP880, split on: fuse of mult + add, the batch at B = 2 --
+    config.ntt_mxu_tail = True
+    try:
+        kgen = mkbfv.KeyGenerator(params_bfv, seed=SEED + 51)
+        brlk, bpks = mkbfv.RelinearizationKeySet(), {}
+        for uid in users:
+            sk, bpks[uid] = kgen.gen_key_pair(uid)
+            brlk.add(kgen.gen_relinearization_key_bfv(
+                sk, kgen.gen_secret_key(uid)))
+        benc = mkbfv.Encryptor(params_bfv, seed=SEED + 52)
+        bev = mkbfv.Evaluator(params_bfv)
+        t = params_bfv.t
+
+        def bfv_operands():
+            cts = [benc.encrypt_msg(rng.integers(0, t, params_bfv.n),
+                                    bpks[u]) for u in users]
+            return (bev.add_new(cts[0], cts[1]),
+                    bev.add_new(cts[2], cts[3]))
+
+        def mult_add(ev, keys, a, b):
+            return ev.add_new(ev.mul_relin_new(a, b, keys.rlk), a)
+
+        keys = types.SimpleNamespace(rlk=brlk)
+        fn, args = fuse.fuse(params_bfv, mult_add, bfv_operands(),
+                             rlk_set=brlk)
+        note(fn)
+        bfv_ms = []
+        for _ in range(2):
+            a, b = bfv_operands()
+            want, e_ms = _timed(lambda: mult_add(bev, keys, a, b))
+            got, r_ms = _timed(lambda: fn(args[0], args[1], (a, b)))
+            replays += 1
+            bfv_ms.append((e_ms, r_ms))
+            _same_ct(got, want, "fused BFV mult + add")
+        del fn, args
+        pairs = [bfv_operands() for _ in range(2)]
+        for got, (a, b) in zip(bev.mul_relin_batched_new(
+                [p[0] for p in pairs], [p[1] for p in pairs], brlk), pairs):
+            _same_ct(got, bev.mul_relin_new(a, b, brlk),
+                     "batched BFV mult at B = 2")
+        del kgen, brlk, bpks, benc, bev, pairs
+    finally:
+        config.ntt_mxu_tail = False
+
+    # -- CNN PN14QP433_CNN, REF layout: build_fused_inference -------------
+    s = profile_cnn.setup(params_cnn, cnn.REF, seed=SEED + 61)
+    lo = s.layout
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn, args = cnn.build_fused_inference(
+        s.params, s.rlk, s.rtk, s.encrypt_image(profile_cnn.image(lo, 0)),
+        *s.model, s.pt_mask, layout=lo)
+    torch.cuda.synchronize()
+    cnn_setup_s, cnn_capture_s = time.perf_counter() - t0, fn.capture_s
+    note(fn)
+    cnn_launches = sum(fn.launches.values())
+    staged_ms, fused_ms, logit_err = [], [], 0.0
+    for k in range(3):
+        img = profile_cnn.image(lo, SEED + 70 + k)
+        ct_img = s.encrypt_image(img)
+        want, ms = _timed(lambda: profile_cnn.infer(s, ct_img))
+        staged_ms.append(ms)
+        got, ms = _timed(lambda: fn(args[0], args[1],
+                                    (ct_img,) + args[2][1:]))
+        fused_ms.append(ms)
+        replays += 1
+        _same_ct(got, want, f"fused CNN inference {k}")
+        logits = s.logits(got)
+        plain = cnn.plain_forward(img, *s.weights, lo)
+        if not (got.ids == profile_cnn.USERS and logits.shape == plain.shape
+                and np.all(np.isfinite(logits))
+                and np.allclose(logits, plain, rtol=5e-3, atol=5e-3)
+                and int(np.argmax(logits)) == int(np.argmax(plain))):
+            raise AssertionError(f"fused CNN inference {k}: logits {logits} "
+                                 f"against {plain}")
+        logit_err = max(logit_err, float(np.max(np.abs(logits - plain))))
+    cnn_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    del fn, args, s
+
+    if sum(captured.values()) < 1:
+        raise AssertionError("no NTT launch was captured into a graph")
+    r = lambda xs: [round(x, 3) for x in xs]
+    print(f"[7 fused] CKKS PN15QP880 4 parties, fuse of mul_relin_new: setup "
+          f"(recording pass + capture) {mult_setup_s:.3f} s, capture "
+          f"{mult_capture_s:.3f} s; three fresh requests, each equal to eager"
+          f" bit for bit, log2 err {max(errs):.2f} (bound {bound:.2f}); ms in "
+          f"turns eager {r(eager_ms)} replay {r(replay_ms)}; peak mem "
+          f"{mult_mem:.2f} GiB; fuse_chained equal to the eager chain at k = "
+          f"1 and 4, ms k=1 {r(t_k[1])} k=4 {r(t_k[4])}, slope (t(4) - t(1))"
+          f" / 3 = {slope:.3f} ms; batched mul_relin_batched_new, each "
+          f"output equal to mul_relin_new, ms per mult "
+          + ", ".join(f"B={b} {r(v)}" for b, v in batch_ms.items())
+          + f"; BFV PN15QP880 split on: fuse of mult + add equal to staged, "
+          f"ms eager / replay {[(round(e, 3), round(f, 3))
+                                for e, f in bfv_ms]}"
+          f", batched B=2 equal to per pair; CNN PN14QP433_CNN REF: "
+          f"build_fused_inference {cnn_setup_s:.3f} s (capture "
+          f"{cnn_capture_s:.3f} s, {cnn_launches} NTT launches captured), "
+          f"three fresh images, each equal to staged bit for bit, max logit "
+          f"err {logit_err:.3g} (rtol = atol = 5e-3), argmax equal; ms per "
+          f"inference in turns staged {r(staged_ms)} replay {r(fused_ms)}; "
+          f"peak mem {cnn_mem:.2f} GiB; NTT launches captured "
+          f"{ {k: v for k, v in captured.items() if v} }, graph replays "
+          f"{replays} (the counters see captures, not replays); phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return captured
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -648,10 +901,12 @@ def main() -> None:
     params_cnn = mkckks.PN14QP433_CNN("cuda")
     stats = phase_kernels(params.rlwe.ring_qp, params_cnn.rlwe.ring_qp)
     probe = phase_probe(params_cnn.rlwe.ring_qp)
-    phases = (phase_mult(params), phase_bfv(mkbfv.PN15QP880("cuda")),
+    params_bfv = mkbfv.PN15QP880("cuda")
+    phases = (phase_mult(params), phase_bfv(params_bfv),
               phase_cnn(params_cnn))
     for name, _, _ in MAIN:
         stats[name]["launches"] = sum(p[name] for p in phases)
+    phase_fused(params, params_bfv, params_cnn)
     stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -19,6 +19,9 @@ Layout mirrors mkhe_tpu:
   mkrlwe/   multi-key RLWE core (keys, key switching, MulAndRelin)
   mkckks/   multi-key CKKS (encoder, encryptor, evaluator)
   mkbfv/    multi-key BFV (double basis, exact encoder, evaluator)
+  models/   the two-party encrypted CNN
+  fuse      a whole pipeline captured as one CUDA graph (fuse,
+            fuse_chained), the JAX package's one-XLA-program runtime tier
 
 This package imports neither JAX nor any module of mkhe_tpu: the host
 helpers it needs (prime search, the security table, the decode CRTs) are
@@ -26,3 +29,5 @@ copied in, so it runs on a machine that has no JAX.
 """
 
 __version__ = "0.1.0"
+
+from . import fuse  # noqa: E402  (the runtime tier: fuse.fuse, fuse_chained)

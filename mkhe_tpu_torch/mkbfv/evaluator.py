@@ -1,6 +1,8 @@
 """Multi-key BFV evaluator (port of mkhe_tpu/mkbfv/evaluator.py:20-131):
-add/sub with id-set union, MulRelin and its hoisted form. PyTorch runs
-eagerly, so the JAX package's jitted cores become direct calls."""
+add/sub with id-set union, MulRelin, its batched and its hoisted form.
+PyTorch runs eagerly, so the JAX package's jitted cores become direct
+calls, and the batched MulRelin's vmap a batch axis through the same
+core."""
 
 from __future__ import annotations
 
@@ -45,13 +47,37 @@ class Evaluator:
                       rlk_set: RelinearizationKeySet) -> Ciphertext:
         """Lift operand 0 to R, rescale operand 1 by QMul/Q into R
         (evaluator.go:118-137), then MulAndRelinBFV."""
+        return self._mul_relin(ct0.ids, ct1.ids, ct0.data, ct1.data,
+                               rlk_set)
+
+    def _mul_relin(self, ids0, ids1, data0, data1, rlk_set) -> Ciphertext:
         p = self.params
-        rlk = rlk_set.stacked(union_ids(ct0.ids, ct1.ids))
-        ct0r = Ciphertext(ids=ct0.ids,
-                          data=bfv_basis.mod_up_q_to_r(p, ct0.data))
-        ct1r = Ciphertext(ids=ct1.ids,
-                          data=bfv_basis.rescale_q_to_r(p, ct1.data))
+        rlk = rlk_set.stacked(union_ids(ids0, ids1))
+        ct0r = Ciphertext(ids=ids0, data=bfv_basis.mod_up_q_to_r(p, data0))
+        ct1r = Ciphertext(ids=ids1,
+                          data=bfv_basis.rescale_q_to_r(p, data1))
         return bfv_ksw.mul_and_relin_bfv(p, ct0r, ct1r, rlk)
+
+    def mul_relin_batched_new(self, cts0, cts1,
+                              rlk_set: RelinearizationKeySet) -> list:
+        """Batched MulRelin for serving (mkhe_tpu/mkbfv/evaluator.py:
+        96-116): B pairs whose sides share their id tuples go through one
+        mult + relin with the batch behind the party axis, (k+1, B, Lq,
+        N), so each NTT launch covers B times the polynomials of one
+        mult. Returns a list of Ciphertexts, each bit-identical to
+        mul_relin_new on its pair."""
+        cts0, cts1 = list(cts0), list(cts1)
+        if len(cts0) != len(cts1) or not cts0:
+            raise ValueError("need equal-length non-empty batches")
+        for lst in (cts0, cts1):
+            if any(c.ids != lst[0].ids for c in lst):
+                raise ValueError("batch must share the id tuple")
+        out = self._mul_relin(
+            cts0[0].ids, cts1[0].ids,
+            torch.stack([c.data for c in cts0], dim=1),
+            torch.stack([c.data for c in cts1], dim=1), rlk_set)
+        return [Ciphertext(ids=out.ids, data=d)
+                for d in out.data.movedim(1, 0).contiguous()]
 
     def hoisted_form(self, ct: Ciphertext) -> bfv_ksw.HoistedCiphertext:
         """Both double-basis forms of ct and their decompositions, so that

@@ -67,7 +67,9 @@ def mul_and_relin_bfv(params: Parameters, ct0r: Ciphertext,
     (MulAndRelinBFV[Hoisted], keyswitch.go:116-250): ct0r holds lifted
     components (ModUpQtoR), ct1r QMul/Q-rescaled ones; the tensor in R is
     quantized by t/QMul back to Q, and the x/y/v/u relinearization fixups
-    run over QP as in CKKS, with 2*beta digits for x and y."""
+    run over QP as in CKKS, with 2*beta digits for x and y. The data may
+    carry a batch axis behind the party axis, (k+1, B, 2Lq, N), as in
+    mkrlwe's mul_and_relin."""
     rp = params.rlwe
     level = rp.max_level
     ring_q, ring_r = rp.ring_q, params.ring_r
@@ -113,15 +115,16 @@ def mul_and_relin_bfv(params: Parameters, ct0r: Ciphertext,
     k1 = len(ids1)
     zt = ksw.mod_down_qp(rp, torch.cat([z1_ntt, t_ntt]), level)
     z1, t = zt[:k1], zt[k1:]
-    i1 = torch.tensor([1 + s for s in sel1], device=out.device)
+    i1 = ksw.index(tuple(1 + s for s in sel1), out.device)
     out[i1] = ring_q.add(out[i1], z1)
 
     # Q-basis fixups with v_i and u, again one batched ModDown
     dec_t = ksw.decompose(rp, t, level)
-    v_ntt = ksw._sum_parties_ntt(rp, dec_t, v_keys, level)
+    v_ntt = ksw._sum_parties_ntt(rp, ksw.parties_inner(dec_t), v_keys,
+                                 level)
     zu_ntt = ksw.external_product_ntt(rp, dec_t, u_key, level)
     vz = ksw.mod_down_qp(rp, torch.cat([v_ntt[None], zu_ntt]), level)
     out[0] = ring_q.add(out[0], vz[0])
-    i0 = torch.tensor([1 + s for s in sel0], device=out.device)
+    i0 = ksw.index(tuple(1 + s for s in sel0), out.device)
     out[i0] = ring_q.add(out[i0], vz[1:])
     return Ciphertext(ids=ids, data=out)

@@ -2,12 +2,15 @@
 with id-set union and scale alignment, MultByConst, DropLevel, Rescale,
 HoistedForm, MulRelin (+hoisted), the lazily relinearized inner product
 MulRelinSum, MulPtxt, Rotate (+hoisted, one or many indices, with the
-power-of-two fallback) and Conjugate. PyTorch runs eagerly, so the JAX
-package's jitted cores become direct calls.
+power-of-two fallback), Conjugate and the batched MulRelin. PyTorch runs
+eagerly, so the JAX package's jitted cores become direct calls, its vmap
+of the batched MulRelin a batch axis through the same core; fuse.py
+captures a pipeline of these calls as one CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -21,6 +24,16 @@ from ..ops import basis
 from ..ops import modmath as mm
 from .params import Parameters
 from .elements import Ciphertext
+
+
+@functools.lru_cache(maxsize=None)
+def _mont_scalar(x: int, moduli, device: torch.device) -> torch.Tensor:
+    """Evaluator._mont_scalar, made once per (x, moduli, device) and kept:
+    a captured CUDA graph (fuse.py) reads it by address, and inside a
+    capture a tensor made from host values would be a host-to-device
+    copy."""
+    return torch.tensor([mm.to_mont_host(x % q, q) for q in moduli],
+                        dtype=torch.int64, device=device)
 
 
 class Evaluator:
@@ -110,8 +123,7 @@ class Evaluator:
     @staticmethod
     def _mont_scalar(x: int, ring) -> torch.Tensor:
         """x mod q_i in Montgomery form, per limb: (L,) on the device."""
-        return torch.tensor([mm.to_mont_host(x % q, q) for q in ring.moduli],
-                            dtype=torch.int64, device=ring.device)
+        return _mont_scalar(x, ring.moduli, ring.device)
 
     # -- level / scale management ------------------------------------------
 
@@ -125,21 +137,25 @@ class Evaluator:
                 ) -> Ciphertext:
         """Divide by trailing moduli until the scale ~ min_scale
         (Rescale, mkckks/evaluator.go:359-398)."""
+        scale, nb = self._rescale_count(ct.scale, ct.level, min_scale)
+        if nb == 0:
+            return ct
+        data = basis.div_round_by_last_moduli(
+            ct.ct.data, self.params.rlwe.ring_q_at(ct.level), nb)
+        return Ciphertext(ct=RCt(ids=ct.ids, data=data), scale=scale)
+
+    def _rescale_count(self, scale: float, level: int,
+                       min_scale: Optional[float] = None):
+        """(scale after, moduli to divide by) of rescale at that level."""
         if min_scale is None:
             min_scale = self.params.scale
         q = self.params.rlwe.q_moduli
-        scale = ct.scale
         nb = 0
-        level = ct.level
         while (level - nb >= 1
                and scale / q[level - nb] >= min_scale / 2):
             scale /= q[level - nb]
             nb += 1
-        if nb == 0:
-            return ct
-        data = basis.div_round_by_last_moduli(
-            ct.ct.data, self.params.rlwe.ring_q_at(level), nb)
-        return Ciphertext(ct=RCt(ids=ct.ids, data=data), scale=scale)
+        return scale, nb
 
     # -- multiplication -----------------------------------------------------
 
@@ -165,6 +181,39 @@ class Evaluator:
                                 level, h0, h1,
                                 square=square and h0 is h1)
         return self.rescale(Ciphertext(ct=out, scale=ct0.scale * ct1.scale))
+
+    def mul_relin_batched_new(self, cts0, cts1, rlk_set) -> list:
+        """Batched MulRelin for serving (mkhe_tpu/mkckks/evaluator.py:
+        319-358): B pairs that share (ids, level, scale) on each side go
+        through one mult + relin + rescale with the batch behind the
+        party axis, (k+1, B, L, N), so each NTT launch covers B times the
+        polynomials of one mult. Returns a list of Ciphertexts, each
+        bit-identical to mul_relin_new on its pair."""
+        cts0, cts1 = list(cts0), list(cts1)
+        if len(cts0) != len(cts1) or not cts0:
+            raise ValueError("need equal-length non-empty batches")
+        for lst in (cts0, cts1):
+            if any(c.ids != lst[0].ids or c.level != lst[0].level
+                   or c.scale != lst[0].scale for c in lst):
+                raise ValueError("batch must share (ids, level, scale); "
+                                 "split the batch")
+        level = min(cts0[0].level, cts1[0].level)
+        ids = union_ids(cts0[0].ids, cts1[0].ids)
+        # the rescale amount, once for the batch (one scale)
+        scale, nb = self._rescale_count(cts0[0].scale * cts1[0].scale,
+                                        level)
+        data0, data1 = (torch.stack([c.ct.data[..., :level + 1, :]
+                                     for c in cts], dim=1)
+                        for cts in (cts0, cts1))
+        rp = self.params.rlwe
+        out = ksw.mul_and_relin(rp, RCt(ids=cts0[0].ids, data=data0),
+                                RCt(ids=cts1[0].ids, data=data1),
+                                rlk_set.stacked(ids), level).data
+        if nb:
+            out = basis.div_round_by_last_moduli(out, rp.ring_q_at(level),
+                                                 nb)
+        return [Ciphertext(ct=RCt(ids=ids, data=d), scale=scale)
+                for d in out.movedim(1, 0).contiguous()]
 
     def mul_relin_sum_new(self, pairs, rlk_set) -> Ciphertext:
         """Inner product sum_i a_i * b_i with lazy relinearization
@@ -193,7 +242,8 @@ class Evaluator:
         mkckks/evaluator.go:465-481), then rescale. pt: (Lq, N)
         coefficient domain, a tensor or Encryptor.encode_msg's uint32
         array (copied to the device on every call: pass a tensor where it
-        is reused)."""
+        is reused, and a tensor on the params' device to a captured
+        pipeline, fuse.py)."""
         level = ct.level
         ring = self.params.rlwe.ring_q_at(level)
         if not isinstance(pt, torch.Tensor):

@@ -17,6 +17,7 @@ rounding differences.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -32,6 +33,14 @@ from .elements import Ciphertext, HoistedCiphertext, union_ids
 # ----------------------------------------------------------------------------
 # Decomposition
 # ----------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def index(sel: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """sel as an int64 index tensor on the device, made once per (sel,
+    device) and kept: inside a captured CUDA graph (fuse.py) a tensor
+    made from host values would be a host-to-device copy."""
+    return torch.tensor(sel, dtype=torch.int64, device=device)
+
 
 def decompose(params: Parameters, x, level: int) -> torch.Tensor:
     """Gadget-decompose coeff-domain (..., level+1, N) polys into canonical
@@ -56,10 +65,9 @@ def slice_digits(params: Parameters, digits, level: int) -> torch.Tensor:
     from_level = digits.shape[-2] - params.pcount - 1
     if from_level == level:
         return digits
-    sel = torch.cat([
-        torch.arange(level + 1),
-        torch.arange(from_level + 1, from_level + 1 + params.pcount)]
-    ).to(digits.device)
+    sel = index((*range(level + 1),
+                 *range(from_level + 1, from_level + 1 + params.pcount)),
+                digits.device)
     return digits[..., :params.beta(level), :, :][..., sel, :]
 
 
@@ -113,6 +121,13 @@ def _aggregate_keys(params: Parameters, digits, keys, level: int
                       params.ring_qp_at(level))
 
 
+def parties_inner(digits) -> torch.Tensor:
+    """Digits laid out party axis first, (k, [B,] beta, Lqp, N), as the
+    mult has them (the batch of mul_relin_batched_new behind the party
+    axis), viewed with the party axis at -4 as _sum_parties_ntt takes it."""
+    return digits.movedim(0, -4)
+
+
 def _sum_parties_ntt(params: Parameters, digits, swks, level: int
                      ) -> torch.Tensor:
     """sum_k sum_b digits[..., k, b] * swks[..., k, b] over QP, NTT
@@ -143,7 +158,7 @@ def _rows(t, sel):
     """t[sel] along dim 0, without a copy when sel selects every row."""
     if list(sel) == list(range(t.shape[0])):
         return t
-    return t[torch.tensor(sel, device=t.device)]
+    return t[index(tuple(sel), t.device)]
 
 
 def _digits(params: Parameters, h: Optional[HoistedCiphertext], d,
@@ -185,8 +200,8 @@ def _relin_keys(params: Parameters, rlk_stacked, ids, ids0, ids1,
             slice_swk(params, _rows(v_all, sel0), level),
             params.crs_at(-1, level))
     dev = d_all.device
-    return (keys, torch.tensor([1 + s for s in sel0], device=dev),
-            torch.tensor([1 + s for s in sel1], device=dev))
+    return (keys, index(tuple(1 + s for s in sel0), dev),
+            index(tuple(1 + s for s in sel1), dev))
 
 
 def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
@@ -197,7 +212,11 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
                   h1: Optional[HoistedCiphertext] = None,
                   square: bool = False) -> Ciphertext:
     """The KKLSS multi-key multiplication with relinearization
-    (keyswitch.go:122-230 / keyswitch_hoisted.go:44-179):
+    (keyswitch.go:122-230 / keyswitch_hoisted.go:44-179). The data may
+    carry a batch axis behind the party axis, (k+1, B, L, N): every step
+    is polynomial-wise or contracts the party axis, so each of the B
+    results is bit-identical to its own call, and each NTT launch covers
+    B times the polynomials.
 
       x = MForm(sum_i d_i . Dec(ct0_i)),  y = MForm(sum_i b_i . Dec(ct1_i))
       out_0 = ct0_0 * ct1_0
@@ -249,7 +268,7 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
     # out_0 += Ext(Dec t_i, v_i); out_i += Ext(Dec t_i, u): again one
     # batched iNTT + ModDown for the v-sum and the u products.
     dec_t = decompose(params, t, level)            # (k0, beta, Lqp, N)
-    v_ntt = _sum_parties_ntt(params, dec_t, v_keys, level)
+    v_ntt = _sum_parties_ntt(params, parties_inner(dec_t), v_keys, level)
     zu_ntt = external_product_ntt(params, dec_t, u_key, level)
     vz = mod_down_qp(params, torch.cat([v_ntt[None], zu_ntt]), level)
     out_arr[0] = ring_q.add(out_arr[0], vz[0])

@@ -107,11 +107,16 @@ class Parameters:
 
     def qp_limb_index(self, level: int) -> torch.Tensor:
         """Indices into the full (Lq+Lp) limb axis selecting the level's Q
-        limbs plus all P limbs (for slicing CRS and switching keys)."""
-        return torch.cat([
-            torch.arange(level + 1),
-            torch.arange(self.qcount, self.qcount + self.pcount)]
-        ).to(self.device)
+        limbs plus all P limbs (for slicing CRS and switching keys);
+        memoized, so that a captured CUDA graph copies nothing from the
+        host (fuse.py)."""
+        key = ("qp_index", level)
+        if key not in self._rings:
+            self._rings[key] = torch.cat([
+                torch.arange(level + 1),
+                torch.arange(self.qcount, self.qcount + self.pcount)]
+            ).to(self.device)
+        return self._rings[key]
 
     def crs_at(self, idx: int, level: int) -> torch.Tensor:
         """CRS for index idx, sliced to (beta(level), level+1+Lp, N)."""

@@ -9,8 +9,10 @@ of cnn/cnn_test.go:353-544.
 The layout, the packing encoders and plain_forward are numpy, copied from
 the JAX package (importing it would load JAX); tests/test_torch_cnn.py
 holds them equal. The encrypted layers and _pipeline run on the port's
-evaluator. The JAX package's build_fused_inference (one XLA program for
-the whole inference) has no counterpart yet.
+evaluator. build_fused_inference is the counterpart of the JAX package's
+(one XLA program for the whole inference): the staged pipeline captured
+as one CUDA graph by fuse.py, its 12 hoistings of the model's
+ciphertexts inside, as in the JAX program.
 """
 
 from __future__ import annotations
@@ -271,6 +273,35 @@ def _pipeline(ev, rlk, rtk, ct_img, ct_k, ct_fc1, ct_fc2, ct_b1, ct_b2,
     sq2 = ev.mul_relin_hoisted_new(f1, f1, h_f1, h_f1, rlk)
     return fc2_layer(ev, rlk, rtk, sq2, ct_fc2, ct_b2, pt_mask,
                      mask_scale, layout)
+
+
+def build_fused_inference(params, rlk_set, rtk_set, ct_img, ct_k, ct_fc1,
+                          ct_fc2, ct_b1, ct_b2, pt_mask,
+                          mask_scale=None, layout: Layout = REF):
+    """The whole encrypted inference as one replayable call (fuse.fuse:
+    one CUDA graph on the card, eager on the CPU), the counterpart of
+    mkhe_tpu/models/cnn.py:300-331.
+
+    Returns (fn, args): fn(*args) runs the full pipeline and returns the
+    output mkckks.Ciphertext. To classify a new image, encrypt it and
+    substitute args[2][0] (the image ciphertext; args = (ring params, key
+    tables, ciphertext tuple)). pt_mask: the fc2 mask plaintext, a tensor
+    on the params' device."""
+    from .. import fuse as _fuse
+
+    if mask_scale is None:
+        mask_scale = params.scale
+
+    def pipe(ev, keys, ct_img, ct_k, ct_fc1, ct_fc2, ct_b1, ct_b2,
+             pt_mask):
+        return _pipeline(ev, keys.rlk, keys.rtk, ct_img, ct_k, ct_fc1,
+                         ct_fc2, ct_b1, ct_b2, pt_mask, mask_scale,
+                         layout)
+
+    return _fuse.fuse(
+        params, pipe,
+        (ct_img, ct_k, ct_fc1, ct_fc2, ct_b1, ct_b2, pt_mask),
+        rlk_set=rlk_set, rtk_set=rtk_set)
 
 
 # ----------------------------------------------------------------------------

@@ -135,7 +135,7 @@ def graph_ms(fn, reps: int, inner: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
     graph.replay()

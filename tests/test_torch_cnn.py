@@ -157,10 +157,10 @@ def test_mask_encoding_matches(mini):
     np.testing.assert_array_equal(got, np.asarray(mini["pt_mask"]))
 
 
-def test_mini_pipeline_bit_identical(mini):
-    """The staged pipeline on the same carried state: the same ciphertext,
-    scale and ids as the JAX package's, and every logit within 5e-3 of the
-    plaintext forward pass."""
+@pytest.fixture(scope="module")
+def staged(mini):
+    """The staged MINI pipeline's output from both packages, on the same
+    carried state."""
     lo, params, cts = mini["layout"], mini["params"], mini["cts"]
     want = jcnn._pipeline(jckks.Evaluator(params), mini["rlk"], mini["rtk"],
                           cts["ct_img"], cts["ct_k"], cts["ct_fc1"],
@@ -173,13 +173,56 @@ def test_mini_pipeline_bit_identical(mini):
                          tcts["ct_img"], tcts["ct_k"], tcts["ct_fc1"],
                          tcts["ct_fc2"], tcts["ct_b1"], tcts["ct_b2"],
                          port["pt_mask"], tp.scale, tcnn.MINI)
-    assert got.ids == want.ids == USERS
-    assert got.scale == want.scale
-    np.testing.assert_array_equal(convert.to_numpy(got.ct.data),
-                                  np.asarray(want.ct.data))
+    return dict(want=want, got=got)
 
-    out = tckks.Decryptor(tp).decrypt(got, port["sks"]).value
+
+def _check_logits(mini, ct):
+    """Every logit within 5e-3 of the plaintext forward pass, same
+    argmax."""
+    lo, port = mini["layout"], mini["port"]
+    out = tckks.Decryptor(port["params"]).decrypt(ct, port["sks"]).value
     logits = np.real(out[:lo.classes])
     plain = tcnn.plain_forward(mini["img"], *mini["weights"], tcnn.MINI)
     np.testing.assert_allclose(logits, plain, rtol=5e-3, atol=5e-3)
     assert int(np.argmax(logits)) == int(np.argmax(plain))
+
+
+def test_mini_pipeline_bit_identical(mini, staged):
+    """The staged pipeline on the same carried state: the same ciphertext,
+    scale and ids as the JAX package's, and every logit within 5e-3 of the
+    plaintext forward pass."""
+    got, want = staged["got"], staged["want"]
+    assert got.ids == want.ids == USERS
+    assert got.scale == want.scale
+    np.testing.assert_array_equal(convert.to_numpy(got.ct.data),
+                                  np.asarray(want.ct.data))
+    _check_logits(mini, got)
+
+
+def test_mini_fused_inference_bit_identical(mini, staged):
+    """build_fused_inference (CPU route) with the JAX package's arguments
+    (mask_scale defaulting to params.scale, the image at args[2][0]): the
+    staged pipeline's ciphertext bit for bit, the key requests of the
+    JAX package's recorder, and every logit within 5e-3 of the plaintext
+    forward pass."""
+    port = mini["port"]
+    tp, tcts = port["params"], port["cts"]
+    fn, args = tcnn.build_fused_inference(
+        tp, port["rlk"], port["rtk"], tcts["ct_img"], tcts["ct_k"],
+        tcts["ct_fc1"], tcts["ct_fc2"], tcts["ct_b1"], tcts["ct_b2"],
+        convert.tensor(port["pt_mask"], "cpu"), layout=tcnn.MINI)
+    assert args[2][0] is tcts["ct_img"]
+    cts = mini["cts"]
+    _, jargs = jcnn.build_fused_inference(
+        mini["params"], mini["rlk"], mini["rtk"], cts["ct_img"], cts["ct_k"],
+        cts["ct_fc1"], cts["ct_fc2"], cts["ct_b1"], cts["ct_b2"],
+        mini["pt_mask"], layout=jcnn.MINI)
+    assert ({n: list(t) for n, t in args[1].items()}
+            == {n: list(t) for n, t in jargs[1].items()})
+    got = fn(*args)
+    want = staged["want"]
+    assert got.ids == want.ids == USERS and got.scale == want.scale
+    np.testing.assert_array_equal(convert.to_numpy(got.ct.data),
+                                  np.asarray(want.ct.data))
+    assert torch.equal(got.ct.data, staged["got"].ct.data)
+    _check_logits(mini, got)

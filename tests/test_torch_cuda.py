@@ -470,3 +470,179 @@ def test_cnn_mini_pipeline_matches_cpu(gen):
     np.testing.assert_allclose(
         logits, cnn.plain_forward(img, kernels, fc1, fc2, b1, b2, lo),
         rtol=5e-3, atol=5e-3)
+
+
+# ----------------------------------------------------------------------------
+# fuse: the pipeline captured as one CUDA graph, and the batched mult
+# ----------------------------------------------------------------------------
+
+def _fuse_ctx(gen, rots=(1, 2)):
+    """CKKS at logN 10 (alpha 2, 2 parties) on the card, keys from
+    torch.Generators, with rotation CRS and keys for rots and a
+    conjugation key; fresh() encrypts one ciphertext under each party."""
+    import numpy as np
+    from mkhe_tpu_torch import mkckks, mkrlwe
+    params = mkckks.new_parameters(10, 9, q0_bits=28.9, level_bits=20.0,
+                                   levels=3, scale=2.0 ** 40, p_bits=28.0,
+                                   p_count=4, device="cuda")
+    for r in rots + (-2,):
+        params = params.add_crs(r)
+    kgen = mkrlwe.KeyGenerator(params.rlwe, seed=87)
+    pks, rlk = {}, mkrlwe.RelinearizationKeySet()
+    rtk, cjk = mkrlwe.RotationKeySet(), mkrlwe.ConjugationKeySet()
+    for uid in ("dataOwner", "modelOwner"):
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        rlk.add(kgen.gen_relinearization_key(sk, kgen.gen_secret_key(uid)))
+        for r in rots:
+            rtk.add(kgen.gen_rotation_key(r, sk))
+        cjk.add(kgen.gen_conjugation_key(sk))
+    enc = mkckks.Encryptor(params, seed=88)
+    rng = np.random.default_rng(89)
+
+    def fresh():
+        return tuple(enc.encrypt_msg(mkckks.Message(
+            value=rng.uniform(-0.5, 0.5, params.slots)), pks[uid])
+            for uid in ("dataOwner", "modelOwner"))
+
+    return params, rlk, rtk, cjk, fresh
+
+
+def _fuse_pipe(ev, keys, a, b):
+    """tests/test_fuse.py's pipeline, with a fractional constant (the
+    Montgomery scalars) and a scale-aligning add."""
+    prod = ev.mul_relin_new(a, b, keys.rlk)
+    rot = ev.rotate_new(prod, 3, keys.rtk)
+    conj = ev.conjugate_new(rot, keys.cjk)
+    return ev.add_new(ev.add_new(conj, prod), ev.mult_by_const_new(a, 0.5))
+
+
+def test_fuse_capture_equals_eager_on_fresh_inputs(gen):
+    """One capture, replayed on inputs that are not the capture's: each
+    replay equals the eager pipeline bit for bit; the capture is in the
+    default error mode (fuse passes no capture_error_mode) and captured
+    NTT launches."""
+    from mkhe_tpu_torch import fuse, mkckks
+    params, rlk, rtk, cjk, fresh = _fuse_ctx(gen)
+    keys = type("K", (), dict(rlk=rlk, rtk=rtk, cjk=cjk))()
+    fn, args = fuse.fuse(params, _fuse_pipe, fresh(), rlk_set=rlk,
+                         rtk_set=rtk, cjk_set=cjk)
+    assert fn.graph is not None and fn.launches["ntt_fwd"] > 0
+    ev = mkckks.Evaluator(params)
+    for _ in range(3):
+        cts = fresh()
+        got, want = fn(args[0], args[1], cts), _fuse_pipe(ev, keys, *cts)
+        assert got.ids == want.ids and got.scale == want.scale
+        assert torch.equal(got.ct.data, want.ct.data)
+
+
+def test_fuse_results_do_not_alias(gen):
+    from mkhe_tpu_torch import fuse, mkckks
+    params, rlk, rtk, cjk, fresh = _fuse_ctx(gen)
+    keys = type("K", (), dict(rlk=rlk, rtk=rtk, cjk=cjk))()
+    fn, args = fuse.fuse(params, _fuse_pipe, fresh(), rlk_set=rlk,
+                         rtk_set=rtk, cjk_set=cjk)
+    first = fn(*args)
+    first_copy = first.ct.data.clone()
+    second = fn(args[0], args[1], fresh())
+    assert first.ct.data.data_ptr() != second.ct.data.data_ptr()
+    assert torch.equal(first.ct.data, first_copy)
+    assert not torch.equal(first.ct.data, second.ct.data)
+    ev = mkckks.Evaluator(params)
+    assert torch.equal(first.ct.data, _fuse_pipe(ev, keys, *args[2]).ct.data)
+
+
+def test_fuse_chained_on_card(gen):
+    """fuse_chained at k = 0, 1 and 3 equals the eager chain bit for bit
+    (sum feedback, benchmarks/_timing.py)."""
+    from mkhe_tpu_torch import fuse, mkckks, mkrlwe
+    params, rlk, rtk, cjk, fresh = _fuse_ctx(gen)
+    keys = type("K", (), dict(rlk=rlk, rtk=rtk, cjk=cjk))()
+
+    def chain(cts, out):
+        a = cts[0]
+        w = out.ct.data.sum() & ((1 << 32) - 1)
+        return (mkckks.Ciphertext(ct=mkrlwe.Ciphertext(
+            ids=a.ids, data=a.ct.data ^ w), scale=a.scale), cts[1])
+
+    run_k, args = fuse.fuse_chained(params, _fuse_pipe, fresh(), chain,
+                                    rlk_set=rlk, rtk_set=rtk, cjk_set=cjk)
+    ev = mkckks.Evaluator(params)
+    cts = fresh()
+    for k in (0, 1, 3):
+        c = cts
+        for _ in range(k):
+            c = chain(c, _fuse_pipe(ev, keys, *c))
+        assert torch.equal(run_k(args[0], args[1], cts, k).ct.data,
+                           _fuse_pipe(ev, keys, *c).ct.data)
+
+
+def test_fused_bfv_split_and_batched_mults_on_card(gen):
+    """BFV at logN 9 with the split NTT on: fuse of mult + add equals the
+    staged ops, the batched mult (B = 2) equals mult by mult; CKKS
+    batched (B = 3) equals mult by mult."""
+    import numpy as np
+    from mkhe_tpu_torch import config, fuse, mkbfv, mkckks
+    from mkhe_tpu_torch.ops.primes import ntt_primes
+    params, rlk, _, _, fresh = _fuse_ctx(gen, rots=())
+    ev = mkckks.Evaluator(params)
+    cts = [fresh() for _ in range(3)]
+    for got, (a, b) in zip(ev.mul_relin_batched_new(
+            [c[0] for c in cts], [c[1] for c in cts], rlk), cts):
+        assert torch.equal(got.ct.data, ev.mul_relin_new(a, b, rlk).ct.data)
+    bp = mkbfv.new_parameters(9, ntt_primes(9, 26.5, 6, skip=10),
+                              ntt_primes(9, 26.5, 6, skip=16),
+                              ntt_primes(9, 28.0, 4), device="cuda")
+    kgen = mkbfv.KeyGenerator(bp, seed=90)
+    pks, brlk = {}, mkbfv.RelinearizationKeySet()
+    for uid in ("a", "b"):
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        brlk.add(kgen.gen_relinearization_key_bfv(sk,
+                                                  kgen.gen_secret_key(uid)))
+    enc, bev = mkbfv.Encryptor(bp, seed=91), mkbfv.Evaluator(bp)
+    rng = np.random.default_rng(92)
+
+    def pair():
+        return tuple(enc.encrypt_msg(rng.integers(0, 65537, bp.n), pks[u])
+                     for u in ("a", "b"))
+
+    def pipe(ev, keys, x, y):
+        return ev.add_new(ev.mul_relin_new(x, y, keys.rlk), x)
+
+    config.ntt_mxu_tail = True
+    try:
+        fn, args = fuse.fuse(bp, pipe, pair(), rlk_set=brlk)
+        assert fn.launches["ntt_split_fwd"] > 0
+        x, y = pair()
+        assert torch.equal(fn(args[0], args[1], (x, y)).data,
+                           pipe(bev, type("K", (), dict(rlk=brlk))(),
+                                x, y).data)
+        pairs = [pair() for _ in range(2)]
+        for got, (x, y) in zip(bev.mul_relin_batched_new(
+                [p[0] for p in pairs], [p[1] for p in pairs], brlk), pairs):
+            assert torch.equal(got.data, bev.mul_relin_new(x, y, brlk).data)
+    finally:
+        config.ntt_mxu_tail = False
+
+
+@pytest.mark.parametrize("kernel", ["ntt", "intt", "split_fwd", "split_inv",
+                                    "variant"])
+def test_ntt_wrappers_capture_in_default_mode(gen, kernel):
+    """Each NTT wrapper, warmed up once, captures into a CUDA graph in the
+    default (global) capture error mode, and the replay equals eager."""
+    ring = _ring(14)
+    x = _rand(gen, (2, ring.nlimbs, ring.n), 1 << 32)
+    st = ring.split_tables()
+    call = {"ntt": ring.ntt, "intt": ring.intt,
+            "split_fwd": lambda a: ntt_cuda.ntt_split_fwd(
+                a, ring.q, ring.r_inv, st),
+            "split_inv": lambda a: ntt_cuda.ntt_split_inv(
+                a, ring.q, ring.bar, ring.r_inv, st),
+            "variant": lambda a: ntt_cuda.ntt_variant(
+                a, ntt_probe.variant_tables(ring), stages=14)}[kernel]
+    want = call(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        got = call(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
