@@ -39,7 +39,10 @@ Phases, one line each, then two JSON lines:
               bound and its plain version's; then, counters at 0, the
               probe's path (mkhe_tpu_torch.ntt_probe.probe: its six rows,
               checked and timed, and the ntt_fwd row) at 4 x 32 x 2^15,
-              which must launch the kernel;
+              which must launch the kernel, with the twiddle and exchange
+              shares; then the full row at the probe's `cnn` (8 x 18 x
+              2^14) and `digits` (4 x 14 x 32 x 2^15) shapes, each equal
+              to Ring.ntt, with its CUDA-graph ms, bound and share;
   4. mult     the CKKS main path: PN15QP880, 4 parties, keys from
               torch.Generator on the card; three requests of fresh
               encryptions -> Evaluator.mul_relin_new (mult + relin +
@@ -121,7 +124,7 @@ from mkhe_tpu_torch import (config, fuse, mkbfv, mkckks, mkrlwe,
 from mkhe_tpu_torch.models import cnn
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
-from mkhe_tpu_torch.profile_ntt import cuda_ms
+from mkhe_tpu_torch.profile_ntt import cuda_ms, graph_ms
 
 BATCH = 8
 SEED = 2024
@@ -394,6 +397,21 @@ def phase_probe(ring14: Ring) -> dict:
     if launches < 1:
         raise AssertionError("the probe launched no variant kernel")
     d = res["derived"]
+    shapes = {}
+    for label in ("cnn", "digits"):
+        ring, b = ntt_probe.shape_ring(label, "cuda")
+        tl = ntt_probe.variant_tables(ring)
+        xl = _rand(gen, (*b, ring.nlimbs, ring.n), 1 << 32)
+        full = lambda: ntt_cuda.ntt_variant(xl, tl, stages=ring.logn)
+        if not torch.equal(full(), ring.ntt(xl)):
+            raise AssertionError(f"ntt_variant's full row != Ring.ntt at "
+                                 f"{label}")
+        sb_ms, _ = profile_ntt.kernel_bound(
+            "ntt_variant", xl, ntt_probe.variant_reads(tl, ring.logn, True),
+            ring.logn)
+        g = graph_ms(full, ntt_probe.REPS)
+        shapes[label] = (list(xl.shape), g, sb_ms)
+        del xl
     print(f"[3b probe] mismatches {mism} kernel vs plain (every built "
           f"setting, both block orders, at {batch[0]} x {ring15.nlimbs} x "
           f"2^15, logN 10 and logN 14 x {ring14.nlimbs} limbs), {comp_mism} "
@@ -408,7 +426,10 @@ def phase_probe(ring14: Ring) -> dict:
           f"ms/stage, twiddle share "
           f"{d['twiddle_share']:.1%}, exchange share "
           f"{d['exchange_share']:.1%}, swap grid - full "
-          f"{d['swap_minus_full_ms']:+.4f} ms; launches {launches}",
+          f"{d['swap_minus_full_ms']:+.4f} ms; launches {launches}; full "
+          f"row, equal to Ring.ntt, CUDA graph: " + ", ".join(
+              f"{label} {shp} {g:.4f} ms (bound {sb:.4f}, {sb / g:.1%})"
+              for label, (shp, g, sb) in shapes.items()),
           flush=True)
     return dict(stats, launches=launches)
 

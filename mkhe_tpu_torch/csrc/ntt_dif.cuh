@@ -12,6 +12,20 @@
 // coefficient i of the block lies at word padded(i) = i + i / 32. The split
 // kernel ends its head passes in shared memory (passes<..., kOut = false>)
 // and runs its tail on them there.
+//
+// Twiddles. DIF takes its twiddle by the low bits of j (j mod h), so in a
+// pass at lo >= 5 every lane of a warp needs its own twiddles: loaded as
+// they are, that is 2^J 8-byte loads in stage J (31 a pass for 32 values),
+// and at logN 15 the pass at bit 10 reads each of the 31,744 entries of
+// stages 10..14 once a polynomial from L2 (half again the polynomial's
+// own HBM bytes), which no L1 reuse hides. Instead (`stage`) a lane
+// splits its twiddle W_B^(low << lo | jl) into W_J^low, an entry of the
+// small stage-J table that every thread of the limb shares (a broadcast
+// from L1, 16-byte pairs), and its root W_B^jl, one load a stage: 5 lane
+// loads a pass instead of 31, and 5 x 1,024 distinct entries at bit 10
+// instead of 31,744. Both factors come from the table with their Shoup
+// quotients, so the price is a second lazy product where low > 0 (49 more
+// products for 80 butterflies a pass) and nothing is generated.
 
 #pragma once
 
@@ -110,25 +124,39 @@ __device__ __forceinline__ Poly poly_of(const Args& a, int e) {
 
 // Stage bit B = kLo + J of a register pass over bits [kLo, kLo + R): the
 // butterflies (c0, c0 + 2^J) of the 2^R values; the bottom of (c0, c1) is
-// position j = j0 | c1 << kLo of its polynomial and takes twiddle
-// t[(c0 mod 2^J) << kLo | jl] of the stage's table t = wpack + N - 2h,
-// jl = j0 mod 2^kLo. With kX off each value is its own partner.
+// position j = j0 | c1 << kLo of its polynomial and takes the twiddle
+// W_B^(j mod h) = t[(c0 mod 2^J) << kLo | jl] of the stage's table
+// t = wpack + N - 2h (h = 2^B, W_B = t[1] a primitive 2h-th root),
+// jl = j0 mod 2^kLo, low = c0 mod 2^J. How a lane obtains it:
+// - kLo = 0: t[low], shared by every thread, in 16-byte pairs;
+// - kLo in 1..4: t[low << kLo | jl], a lane's own;
+// - kLo >= 5: W_B^(low << kLo | jl) = W_J^low W_B^jl, since
+//   W_B^(2^kLo) = W_J. W_J^low is entry low of stage J's table, the same
+//   for every thread of the limb (a broadcast, in 16-byte pairs, from L1);
+//   W_B^jl = t[jl] is the lane's root, one load a stage. The bottom is
+//   (d W_J^low) W_B^jl, two lazy Shoup products (one at low = 0), each
+//   with a quotient from the table, so nothing is generated.
+// With kX off each value is its own partner.
 template <int kLogN, int kLo, int R, int J, bool kX, bool kMul>
 __device__ __forceinline__ void stage(uint32_t (&v)[1 << R],
                                       const uint64_t* tw, int jl, uint32_t q,
                                       uint32_t q2, uint32_t z) {
   constexpr int B = kLo + J;
   constexpr bool kW = kMul && B > 0;
+  constexpr bool kGen = kW && kLo >= 5;
+  constexpr bool kShared = kW && (kLo == 0 || kGen) && J > 0;
   const uint64_t* t = tw + ((1 << kLogN) - (2 << B)) + jl;
+  const uint64_t* ts = tw + ((1 << kLogN) - (2 << J));  // W_J^low
+  const uint64_t r = kGen ? __ldg(t) : 0;
   ulonglong2 w2;
 #pragma unroll
   for (int low = 0; low < (1 << J); ++low) {
     uint64_t w = 0;
-    if (kW && kLo == 0 && J > 0) {  // shared by every thread: 16-byte pairs
+    if (kShared) {
       if (low % 2 == 0)
-        w2 = __ldg(reinterpret_cast<const ulonglong2*>(t + low));
+        w2 = __ldg(reinterpret_cast<const ulonglong2*>(ts + low));
       w = low % 2 ? w2.y : w2.x;
-    } else if (kW) {
+    } else if (kW && !kGen) {
       w = __ldg(t + (low << kLo));
     }
 #pragma unroll
@@ -138,7 +166,10 @@ __device__ __forceinline__ void stage(uint32_t (&v)[1 << R],
       const uint32_t x = v[c0], y = v[c1];
       const uint32_t d = (kX ? x : y ^ z) - y + q2;
       v[c0] = csub(x + (kX ? y : x ^ z), q2);
-      v[c1] = kW ? shoup_lazy(d, w, q) : csub(d, q2);
+      if (kGen)
+        v[c1] = shoup_lazy(low == 0 ? d : shoup_lazy(d, w, q), r, q);
+      else
+        v[c1] = kW ? shoup_lazy(d, w, q) : csub(d, q2);
     }
   }
 }
@@ -156,13 +187,17 @@ __device__ __forceinline__ void stages(uint32_t (&v)[1 << R],
 // Exchange off, stage J of a later pass over bits [kLo, kLo + P) of the full
 // row (stage bit B = kLo + J, below the first pass): bit B of every register's
 // position is bit B of j0, so the whole group is top or bottom, and a bottom
-// takes the one twiddle t[j0 mod h], t = wpack + N - 2h. The stage loads the
-// 2^J twiddles that the full row's group loads, t[low << kLo | j0 mod 2^kLo]
-// (in 16-byte pairs at kLo = 0), and keeps the one of low = j0 >> kLo mod
-// 2^J. Each pair of values computes both sums and one product, and keeps the
-// product where bit B of j0 is set, the sums where it is clear: no branch.
-// The loads' address waits for the last stage's v[0] (`never`), so that the
-// compiler does not load every stage's twiddles at once and spill the values.
+// takes the one twiddle W_B^(j0 mod h) (`stage`). The stage obtains the
+// twiddles that the full row's group obtains, in the same pattern: at kLo = 0
+// stage J's 2^J shared entries (16-byte pairs); at kLo >= 5 the lane's root
+// W_B^jl and stage J's 2^J shared entries W_J^low; in between the 2^J
+// entries t[low << kLo | jl]; it keeps the entry of low = j0 >> kLo mod 2^J
+// (at kLo >= 5 the bottom is (d W_J^low) W_B^jl, two products also at
+// low = 0, where W_J^0 = 1). Each pair of values computes both sums and one
+// product, and keeps the product where bit B of j0 is set, the sums where it
+// is clear: no branch. The loads' address waits for the last stage's v[0]
+// (`never`), so that the compiler does not load every stage's twiddles at
+// once and spill the values.
 template <int kLogN, int kLo, int J, int R, bool kMul>
 __device__ __forceinline__ void kept_stages(uint32_t (&v)[1 << R],
                                             const uint64_t* tw, int j0,
@@ -171,18 +206,22 @@ __device__ __forceinline__ void kept_stages(uint32_t (&v)[1 << R],
   if constexpr (J >= 0) {
     constexpr int B = kLo + J;
     constexpr bool kW = kMul && B > 0;
+    constexpr bool kGen = kW && kLo >= 5;
     constexpr int C = 1 << R;
+    const int dep = never(v[0]);
     const uint64_t* t = tw + ((1 << kLogN) - (2 << B)) +
-                        (j0 & ((1 << kLo) - 1)) + never(v[0]);
+                        (j0 & ((1 << kLo) - 1)) + dep;
+    const uint64_t* ts = tw + ((1 << kLogN) - (2 << J)) + dep;
     const int want = (j0 >> kLo) & ((1 << J) - 1);
+    const uint64_t r = kGen ? ld_kept(t) : 0;
     uint64_t w = 0;
-    if (kW && kLo == 0) {  // J > 0: shared by every thread, 16-byte pairs
+    if (kW && (kLo == 0 || kGen) && J > 0) {  // shared: 16-byte pairs
 #pragma unroll
       for (int low = 0; low < (1 << J); low += 2) {
-        const ulonglong2 w2 = ld_kept2(t + low);
+        const ulonglong2 w2 = ld_kept2(ts + low);
         w = low == want ? w2.x : low + 1 == want ? w2.y : w;
       }
-    } else if (kW) {
+    } else if (kW && !kGen) {
 #pragma unroll
       for (int low = 0; low < (1 << J); ++low) {
         const uint64_t wl = ld_kept(t + (low << kLo));
@@ -194,7 +233,11 @@ __device__ __forceinline__ void kept_stages(uint32_t (&v)[1 << R],
     for (int c = 0; c < C / 2; ++c) {
       const uint32_t x = v[c], y = v[c + C / 2];
       const uint32_t d = (x ^ z) - x + q2;
-      const uint32_t b = kW ? shoup_lazy(d, w, q) : csub(d, q2);
+      uint32_t b;
+      if (kGen)
+        b = shoup_lazy(J > 0 ? shoup_lazy(d, w, q) : d, r, q);
+      else
+        b = kW ? shoup_lazy(d, w, q) : csub(d, q2);
       v[c] = bottom ? b : csub(x + (x ^ z), q2);
       v[c + C / 2] = bottom ? b : csub(y + (y ^ z), q2);
     }

@@ -31,9 +31,12 @@
 //   first pass and written (canonical) inside the last, with 16-byte
 //   warp-staged stores in a pass at bit 0, as ntt.cu does.
 // - Packed 8-byte twiddles w | w_sh << 32 (and twist | twist_sh << 32), in
-//   natural order: a pass at lo >= 5 reads its stage's twiddles as
-//   neighbouring words across a warp; the pass at bit 0 reads twiddles that
-//   every thread shares (in 16-byte pairs), so no read order is needed.
+//   natural order. The pass at bit 0 reads twiddles that every thread
+//   shares (in 16-byte pairs). A pass at lo >= 5 reads one root W_B^jl a
+//   stage for each lane, neighbouring words across a warp, and stage J's
+//   shared entries W_J^low, and multiplies a bottom by both (ntt_dif.cuh,
+//   "Twiddles"), where loading each lane's twiddles as they are would take
+//   2^J loads a stage, 31 a pass.
 // - The launch geometry of ntt.cu (ops/ntt_cuda.py::geometry: polynomials
 //   per block, threads, shared memory), and the same 64-register cap.
 // - Every loop bound is a compile-time constant: logN, the stages, the
@@ -43,9 +46,9 @@
 //   in registers from the HBM read to the HBM write, with no shared memory
 //   and no barrier, and only the exchange is gone: every stage loads as
 //   many twiddles for a group of 32 values as the full row's pass does, in
-//   the same pattern across a warp (`kept_stages`; at logN 14 the last pass,
-//   two groups of 16 in the full row, loads one group's), and nothing
-//   branches. The layout stays the first pass's, so a stage below it is
+//   the same pattern across a warp (`kept_stages`: the lane's root and the
+//   shared entries at lo >= 5; at logN 14 the last pass, two groups of 16 in
+//   the full row, loads one group's), and nothing branches. The layout stays the first pass's, so a stage below it is
 //   top or bottom for a whole group of 32, which takes one of the loaded
 //   twiddles; a pair of values computes both sums and one product and keeps
 //   what its side needs (one sum and two selects a pair more than a
@@ -58,8 +61,13 @@
 //   consecutive blocks share one limb's tables in L2; the output is the same.
 //
 // What bounds it on an H100: the bytes, as ntt.cu (16 per coefficient, plus
-// the tables), by a small margin over the int32 operations (profile_ntt.
-// kernel_bound, "ntt_variant").
+// the table entries it reads, ntt_cuda.variant_twiddle_entries), by a
+// margin over the int32 operations (profile_ntt.kernel_bound,
+// "ntt_variant"). Loaded as they are, a lane's own twiddles held this
+// transform at 36-45 % of that bound (the probe's twiddle share, 39-53 %,
+// against an exchange share of 5-12 %, PERF.md); the root scheme trades
+// 26 of a pass's 31 lane loads for 49 lazy products, which the operation
+// bound has room for.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -38,7 +38,9 @@ The kernel of csrc/ntt_variant.cu replaces the NTT cost probe's
 benchmarks/ntt_probe.py::_variant_kernel: `ntt_variant`, a forward NTT in
 the split's decimation with its stage count, exchange and twiddle
 multiplies switchable, built on the full kernels' passes, geometry and
-packed twiddles (natural order, `pack_natural`), for the settings of
+packed twiddles (natural order, `pack_natural`; in a pass at bit 5 or
+above a lane's root times an entry every thread shares, so it reads
+`variant_twiddle_entries` of the table), for the settings of
 `variant_settings`; mkhe_tpu_torch.ntt_probe drives it.
 
 Every wrapper dispatches on the tensor's device: a CPU tensor goes to the
@@ -693,6 +695,33 @@ def variant_settings(logn: int) -> frozenset:
     return frozenset({(logn, True, True), (8, True, True), (1, True, True),
                       (logn - 7, True, True), (logn, True, False),
                       (logn, False, True)})
+
+
+@functools.lru_cache(maxsize=None)
+def variant_twiddle_entries(logn: int, stages: int) -> np.ndarray:
+    """The entries of a limb's wpack table that the variant kernel reads
+    with the multiplies on (csrc/ntt_dif.cuh::stage; the exchange changes
+    nothing), sorted: its passes split the stages as `_passes` does, from
+    the top; stage bit b = lo + J (h = 2^b > 1) of a pass at bit lo reads,
+    at lo >= 5, the lanes' roots W_b^jl (entries [N - 2h, N - 2h + 2^lo))
+    and stage J's shared table W_J^low (all 2^J entries, J > 0), and below
+    lo = 5 the whole stage table [N - 2h, N - h)."""
+    n, idx, done = 1 << logn, [], 0
+    while done < stages:
+        r = min(stages - done, MAX_PASS_BITS)
+        lo = logn - done - r
+        for j in range(r):
+            b = lo + j
+            if b == 0:
+                continue
+            if lo >= 5:
+                idx.append(np.arange(n - (2 << b), n - (2 << b) + (1 << lo)))
+                if j > 0:
+                    idx.append(np.arange(n - (2 << j), n - (1 << j)))
+            else:
+                idx.append(np.arange(n - (2 << b), n - (1 << b)))
+        done += r
+    return np.unique(np.concatenate(idx)) if idx else np.zeros(0, np.int64)
 
 
 def variant_poly_order(n_polys: int, L: int, order: str) -> np.ndarray:

@@ -264,7 +264,8 @@ def test_variant_kernel_matches_plain(gen, logn):
     """Every setting the variant kernel is built for, in both block
     orders, on any-u32 input with 2^32 - 1 extremes, 9 polynomials (the
     last block short at logN 10); every stage against Ring.ntt and logN - 7
-    stages against the head kernel."""
+    stages against the head kernel; at logN 15 also every setting at the
+    probe's `digits` launch."""
     ring = _ring(logn)
     t = ntt_probe.variant_tables(ring)
     x = _rand(gen, (3, ring.nlimbs, ring.n), 1 << 32)
@@ -283,6 +284,21 @@ def test_variant_kernel_matches_plain(gen, logn):
                        ntt_cuda.ntt_head(x, t.q, t.twist, t.twist_sh,
                                          t.wpack, t.wpack_sh, t.twist_pack,
                                          t.wpack_pack))
+    if logn == 15:
+        # the probe's `digits` launch: 4 x 14 x 32 x 2^15, 1792 blocks
+        ring = _ring(15, 32)
+        t = ntt_probe.variant_tables(ring)
+        x = _rand(gen, (4, 14, ring.nlimbs, ring.n), 1 << 32)
+        for stages, exchange, mul in sorted(ntt_cuda.variant_settings(15)):
+            want = ntt_cuda.ntt_variant_plain(x, t, stages=stages,
+                                              exchange=exchange, mul=mul)
+            for order in ntt_cuda.ORDERS:
+                got = ntt_cuda.ntt_variant(x, t, stages=stages,
+                                           exchange=exchange, mul=mul,
+                                           order=order)
+                assert torch.equal(got, want), (stages, exchange, mul,
+                                                order)
+            del want, got
     torch.cuda.synchronize()
 
 

@@ -186,11 +186,35 @@ def _passes(logn, stages, exchange):
     return out
 
 
+def _bottom(d, b, lo, J, low, jl, limb, wpack_pack, qv, mul, read):
+    """The bottom of a butterfly of stage bit b = lo + J whose twiddle is
+    W_b^(low << lo | jl) (csrc/ntt_dif.cuh::stage): at lo >= 5 the lane's
+    root W_b^jl times stage J's shared W_J^low, else the table entry itself.
+    `read` collects the entries read as (limb, wpack index, shared, lo)."""
+    n = wpack_pack.shape[-1]
+    if not (mul and b > 0):
+        return _csub(d, 2 * qv)
+    if lo >= 5:
+        ri, si = n - (2 << b) + jl, n - (2 << J) + low
+        if low == 0:    # one root a stage
+            read.append((limb, ri, False, lo))
+        if J > 0:    # the kernel reads stage J's entries in pairs
+            read.append((limb, si + 0 * jl, True, lo))
+        t = d if low == 0 else _shoup_lazy(d, wpack_pack[limb, si], qv)
+        return _shoup_lazy(t, wpack_pack[limb, ri], qv)
+    wi = n - (2 << b) + (low << lo) + jl
+    read.append((limb, wi, lo == 0, lo))
+    return _shoup_lazy(d, wpack_pack[limb, wi], qv)
+
+
 def emulate_variant(x, q, twist_pack, wpack_pack, stages, exchange, mul,
-                    order):
+                    order, read=None):
     """The kernel's schedule and arithmetic on numpy uint64 words, all
     blocks and threads at once: x (n_polys, N), q (L,), packed tables
-    (L, N) as uint64."""
+    (L, N) as uint64. `read`, a list, collects every twiddle read as
+    (limbs, wpack indices, shared by the limb's threads, the bit lo of
+    the pass whose stage reads it), each index array (blocks, threads)."""
+    read = [] if read is None else read
     n_polys, n = x.shape
     L, logn = len(q), n.bit_length() - 1
     geom = ntt_cuda.geometry(logn, n_polys)
@@ -221,11 +245,10 @@ def emulate_variant(x, q, twist_pack, wpack_pack, stages, exchange, mul,
                     for c in range(C)]
             else:
                 v = [smem[rows, _padded(base | (c << lo))] for c in range(C)]
+            jl = j0 & ((1 << lo) - 1)
             for J in range(R - 1, -1, -1):
                 b = lo + J
                 for low in range(1 << J):
-                    w = wpack_pack[limb, n - (2 << b) + (low << lo)
-                                   + (j0 & ((1 << lo) - 1))]
                     for hi in range(1 << (R - 1 - J)):
                         c0 = (hi << (J + 1)) | low
                         c1 = c0 | (1 << J)
@@ -233,8 +256,9 @@ def emulate_variant(x, q, twist_pack, wpack_pack, stages, exchange, mul,
                         d = ((x0 if exchange else y0) - y0 + q2) & M32
                         v[c0] = _csub((x0 + (y0 if exchange else x0)) & M32,
                                       q2)
-                        v[c1] = (_shoup_lazy(d, w, qv) if mul and b > 0
-                                 else _csub(d, q2))
+                        v[c1] = _bottom(d, b, lo, J, low, jl, limb,
+                                        wpack_pack, qv, mul,
+                                        read if hi == 0 else [])
             done = logn - lo    # exchange off: the full row's later passes
             while done < logn - end:
                 p = min(logn - end - done, 5)
@@ -242,15 +266,32 @@ def emulate_variant(x, q, twist_pack, wpack_pack, stages, exchange, mul,
                 for J in range(p - 1, -1, -1):
                     b = klo + J
                     want = (j0 >> klo) & ((1 << J) - 1)
-                    w = np.zeros_like(j0, dtype=np.uint64)
-                    for low in range(1 << J):
-                        w = np.where(low == want, wpack_pack[
-                            limb, n - (2 << b) + (low << klo)
-                            + (j0 & ((1 << klo) - 1))], w)
-                    bottom = (j0 >> b) & 1 != 0
                     d = q2  # the partner is the value itself
-                    bot = (_shoup_lazy(d, w, qv) if mul and b > 0
-                           else _csub(d, q2))
+                    jl = j0 & ((1 << klo) - 1)
+                    if mul and b > 0 and klo >= 5:
+                        # the root and stage J's 2^J shared entries; W_J^0
+                        # = 1 is multiplied too: no branch on want
+                        ri = n - (2 << b) + jl
+                        read.append((limb, ri, False, klo))
+                        t = d
+                        if J > 0:
+                            read.extend((limb, n - (2 << J) + low + 0 * j0,
+                                         True, klo) for low in range(1 << J))
+                            t = _shoup_lazy(d, wpack_pack[
+                                limb, n - (2 << J) + want], qv)
+                        bot = _shoup_lazy(t, wpack_pack[limb, ri], qv)
+                    elif mul and b > 0:
+                        wi = [n - (2 << b) + (low << klo) + jl
+                              for low in range(1 << J)]
+                        read.extend((limb, i, klo == 0, klo) for i in wi)
+                        w = wpack_pack[limb, wi[0]]
+                        for low in range(1, 1 << J):
+                            w = np.where(low == want,
+                                         wpack_pack[limb, wi[low]], w)
+                        bot = _shoup_lazy(d, w, qv)
+                    else:
+                        bot = _csub(d, q2)
+                    bottom = (j0 >> b) & 1 != 0
                     for c in range(C):
                         v[c] = np.where(bottom, bot,
                                         _csub(2 * v[c] & M32, q2))
@@ -331,6 +372,76 @@ def test_shared_memory_accesses_are_conflict_free(logn):
             assert _worst_bank(_padded(idx)) == 1, (stages, lo, r)
 
 
+@pytest.mark.parametrize("logn", ntt_cuda.VARIANT_LOGNS)
+def test_twiddle_entries_are_powers_of_omega(logn):
+    """What the kernel reads of a limb's packed wpack (w | w_sh << 32)
+    against Python's powers of omega mod q: stage bit b's entry l is
+    W_b^l, W_b = omega^(N / 2^(b+1)), with its exact Shoup quotient; and
+    the identity the lane roots rest on, W_b^(low << lo) = W_J^low (J =
+    b - lo), for every pass of every built setting at lo >= 5."""
+    mods = ntt_primes(logn, 28.9, 1) + ntt_primes(logn, 27.0, 1)
+    t = ntt_probe.variant_tables(tring.Ring.create(mods, logn, "cpu"))
+    n = 1 << logn
+    for q, pack in zip(mods, t.wpack_pack.numpy().view(np.uint64)):
+        w, w_sh = pack & M32, pack >> np.uint64(32)
+        omega = int(w[1])   # stage bit logN - 1: omega^l
+        assert pow(omega, n // 2, q) == q - 1
+        for b in range(logn):
+            want = [pow(omega, (n >> (b + 1)) * l, q) for l in range(1 << b)]
+            got = w[n - (2 << b):n - (1 << b)]
+            assert got.tolist() == want, b
+            assert np.array_equal(w_sh[n - (2 << b):n - (1 << b)],
+                                  (got << np.uint64(32)) // np.uint64(q))
+        for stages, _, _ in ntt_cuda.variant_settings(logn):
+            for lo, r, *_ in _passes(logn, stages, True):
+                for j in range(r if lo >= 5 else 0):
+                    b = lo + j
+                    low = np.arange(1 << j)
+                    assert np.array_equal(pack[n - (2 << b) + (low << lo)],
+                                          pack[n - (2 << j) + low])
+
+
+@pytest.mark.parametrize("logn", ntt_cuda.VARIANT_LOGNS)
+def test_twiddle_reads(logn):
+    """The emulated kernel's twiddle reads, every built setting with the
+    multiplies: the entries read are ntt_cuda.variant_twiddle_entries (the
+    bound's count) on every limb, with and without the exchange; an entry
+    the limb's threads share is one address across each warp (a
+    broadcast); at lo >= 5 a lane reads one root a stage, and a warp's
+    roots are 32 neighbouring words."""
+    L = 2
+    mods = ntt_primes(logn, 28.9, L)
+    ring = tring.Ring.create(mods, logn, "cpu")
+    t = ntt_probe.variant_tables(ring)
+    x = np.zeros((L * (1 if logn >= 13 else 3), ring.n), np.uint64)
+    tables = [a.numpy().view(np.uint64)
+              for a in (t.q, t.twist_pack, t.wpack_pack)]
+    for stages, exchange, mul in sorted(ntt_cuda.variant_settings(logn)):
+        if not mul:
+            continue
+        read = []
+        emulate_variant(x, *tables, stages, exchange, mul, "poly", read)
+        want = ntt_cuda.variant_twiddle_entries(logn, stages)
+        for limb in range(L):
+            got = np.unique(np.concatenate(
+                [i[lm == limb] for lm, i, *_ in read]))
+            assert np.array_equal(got, want), (stages, exchange, limb)
+        for lm, i, shared, _ in read:
+            warps = (i + lm * ring.n).reshape(-1, 32)
+            if shared:
+                assert (warps == warps[:, :1]).all(), (stages, exchange)
+        if exchange:
+            for lo, r, *_ in _passes(logn, stages, True):
+                if lo < 5:
+                    continue
+                roots = [i for _, i, shared, at in read
+                         if at == lo and not shared]
+                # one root a stage for each of the thread's 32 / 2^r groups
+                assert len(roots) == r * (32 >> r), (stages, lo)
+                for i in roots:
+                    assert (np.diff(i.reshape(-1, 32), axis=1) == 1).all()
+
+
 # ----------------------------------------------------------------------------
 # The wrapper, the bound and the entry point
 # ----------------------------------------------------------------------------
@@ -357,15 +468,21 @@ def test_wrapper_checks():
 
 
 def test_variant_bound():
-    """Bytes: 16 a coefficient and the tables read; operations: 6 a
-    butterfly with a multiply, 3 without, 4 a coefficient for the twist."""
+    """Bytes: 16 a coefficient and the tables read (the wpack entries the
+    kernel reads, each once); operations: 6 a butterfly with a multiply, 3
+    without, 4 a coefficient for the twist. At logN 10 the pass at bit 5
+    reads 32 lane roots for each of its stages 5..9 and the shared entries
+    of stages 1..4 (2 + 4 + 8 + 16), which are also all that the pass at
+    bit 0 (every stage) or bit 2 (8 stages) reads: 190 entries; one stage
+    reads its lane roots, the stage's 512 entries."""
     ring = tring.Ring.create(ntt_primes(10, 28.9, 4), 10, "cpu")
     t = ntt_probe.variant_tables(ring)
     x = torch.zeros((2, 4, ring.n), dtype=torch.int64)
     n, L, bfly = x.numel(), 4, x.numel() // 2
     for stages, mul, used, ops in (
-            (10, True, ring.n - 2, 6 * bfly * 9 + 3 * bfly),
-            (10, False, 0, 3 * bfly * 10), (8, True, ring.n - 4, 6 * bfly * 8),
+            (10, True, 5 * 32 + 30, 6 * bfly * 9 + 3 * bfly),
+            (10, False, 0, 3 * bfly * 10), (8, True, 5 * 32 + 30,
+                                            6 * bfly * 8),
             (1, True, ring.n // 2, 6 * bfly)):
         reads = ntt_probe.variant_reads(t, stages, mul)
         nbytes = 16 * n + 8 * L + 8 * L * ring.n + 8 * L * used
@@ -401,10 +518,24 @@ def test_probe_cpu_dry_run():
     assert out["probe"]["probe"]["rows"] == {}
 
 
+def test_probe_other_option():
+    """ntt_probe --other DIR parses, and --device cpu refuses it, saying
+    why; probe() holds another checkout's rows (this one, loaded under the
+    other name) against its own, here on the CPU's plain route."""
+    with pytest.raises(SystemExit, match="--other times two checkouts"):
+        ntt_probe.main(["--device", "cpu", "--other", REPO])
+    other = ntt_probe.load_other(REPO)
+    assert other[0].__name__.startswith("mkhe_tpu_torch_other")
+    ring = tring.Ring.create(ntt_primes(8, 28.9, 2), 8, "cpu")
+    res = ntt_probe.probe(ring, (2,), timed=False, other=other)
+    assert res["shape"] == [2, 2, 256] and res["rows"] == {}
+
+
 def test_sass_mix_counts_each_variant_kernel():
     """The probe's static instruction counts, per variant kernel of one
     logN, from cuobjdump's listing (predicated instructions included, the
-    encoding lines and the other kernels not)."""
+    encoding lines and the other kernels not; IMAD.HI.U32 counts as
+    IMAD.HI, a plain IMAD not)."""
     body = ("        /*0000*/                   LDG.E.64.CONSTANT R2, "
             "desc[UR4][R2.64] ;   /* 0x0000000402027981 */\n"
             "                                          "
@@ -412,11 +543,14 @@ def test_sass_mix_counts_each_variant_kernel():
             "        /*0010*/              @!P2 BRA 0x580 ;   "
             "/* 0x000000040028a947 */\n"
             "        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;"
-            "\n        /*0030*/                   LDS R4, [R5] ;\n")
+            "\n        /*0030*/                   LDS R4, [R5] ;"
+            "\n        /*0040*/                   IMAD.HI.U32 R6, R4, R7, RZ ;"
+            "\n        /*0050*/                   IMAD R6, R4, R7, RZ ;\n")
     sass = "".join(f"\t\tFunction : _ZN4anon{name}EvNS_4ArgsE\n" + body
                    for name in ("18ntt_variant_kernelILi15ELi15ELb0ELb1EE",
                                 "18ntt_variant_kernelILi14ELi14ELb1ELb1EE",
                                 "10ntt_kernelILb1EE"))
-    mix = {"LDG": 1, "LDS": 1, "STS": 0, "BAR": 1, "BRA": 1, "all": 4}
+    mix = {"LDG": 1, "LDS": 1, "STS": 0, "BAR": 1, "BRA": 1, "IMAD.HI": 1,
+           "all": 6}
     assert ntt_probe.sass_mix(sass, 15) == {"stages=15 exchange=0 mul=1": mix}
     assert list(ntt_probe.sass_mix(sass, 14)) == ["stages=14 exchange=1 mul=1"]
