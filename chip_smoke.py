@@ -95,6 +95,27 @@ Phases, one line each, then two JSON lines:
               graphs (more than 0) and the graph replays: the counters
               count wrapper calls, so they see the captures and not the
               replays.
+  8. api      the public surface at PN15QP880 from the port's own default
+              parameters (no CRS added or carried in): the CRS index sets
+              of the three parameter sets equal the JAX package's rule
+              (0, -1..-4, 2^i for i < logN - 1; written out here), with
+              their GB on the card; CKKS, 4 parties, the default rotation
+              keys and conjugation keys: rotate_new by 1, 5 (1 then 4) and
+              -1 (14 power-of-two steps) and conjugate_new, each within
+              phase 4's bound; 4 relin keys, a secret key, a rotation key
+              and a product ciphertext saved and loaded (utils.serialize,
+              a temporary directory) bit for bit, and a mult with the
+              loaded relin keys equal to one with the originals; BFV, 4
+              parties: rotate_new by 1 and 3 (1 then 2) and conjugate_new,
+              each exactly the plaintext's rotation (two rows of N/2), the
+              rotation by 3 again with the split off and on, bit for bit;
+              ms of rotate_new(1) and conjugate_new (CUDA events, median
+              of 3 after a warm-up) in both schemes; the u64 oracle gate
+              (utils.oracle.cross_validate("pn15", ..., seed=17), as
+              bench.py::oracle_cross_check): both errors within the bound
+              and within 6 bits of each other, with its seconds; both
+              examples' main() on the card; the phase's NTT launches,
+              which must be more than 0, on a line of their own.
 Then {"kernels": [...]} (launches summed over phases 4-6, as before phase
 7 existed, so phase 7's captured launches are not in them; ntt_variant's
 from phase 3b's probe run: the wrapper's launches, those captured into
@@ -109,10 +130,14 @@ fails in phase 1.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 import types
 
@@ -121,10 +146,12 @@ import torch
 
 from mkhe_tpu_torch import (config, fuse, mkbfv, mkckks, mkrlwe,
                             ntt_probe, profile_cnn, profile_ntt)
+from mkhe_tpu_torch.examples import two_party_bfv, two_party_ckks
 from mkhe_tpu_torch.models import cnn
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
 from mkhe_tpu_torch.profile_ntt import cuda_ms, graph_ms
+from mkhe_tpu_torch.utils import oracle, serialize
 
 BATCH = 8
 SEED = 2024
@@ -915,6 +942,191 @@ def phase_fused(params, params_bfv, params_cnn) -> dict:
     return captured
 
 
+def phase_api(params, params_bfv, params_cnn) -> dict:
+    """The port's public surface at PN15QP880 from its own default
+    parameters (no CRS added, none carried in): the default CRS set, CKKS
+    and BFV rotation and conjugation, the u64 oracle gate, serialization
+    and both examples. Returns the phase's NTT launches."""
+    phase_t0 = time.perf_counter()
+    users = [f"user{i}" for i in range(4)]
+    # -- the default CRS: the JAX package's rule, written out here --------
+    crs_gb = {}
+    for name, rp in (("CKKS", params.rlwe), ("BFV", params_bfv.rlwe),
+                     ("CNN", params_cnn.rlwe)):
+        rule = {0, -1, -2, -3, -4} | {1 << i for i in range(rp.logn - 1)}
+        if set(rp.crs) != rule:
+            raise AssertionError(f"{name} CRS indices {sorted(rp.crs)} are "
+                                 f"not the default set {sorted(rule)}")
+        crs_gb[name] = sum(a.numel() * a.element_size()
+                           for a in rp.crs.values()) / 1e9
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    ntt_cuda.reset_counters()
+
+    # -- CKKS, 4 parties: rotation, conjugation, serialization ------------
+    kgen = mkrlwe.KeyGenerator(params.rlwe, seed=SEED + 81)
+    sks, rlk, pks = mkrlwe.SecretKeySet(), mkrlwe.RelinearizationKeySet(), {}
+    rtk, cjk = mkrlwe.RotationKeySet(), mkrlwe.ConjugationKeySet()
+    for uid in users:
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        sks.add(sk)
+        rlk.add(kgen.gen_relinearization_key(sk, kgen.gen_secret_key(uid)))
+        kgen.gen_default_rotation_keys(sk, rtk)
+        cjk.add(kgen.gen_conjugation_key(sk))
+    enc = mkckks.Encryptor(params, seed=SEED + 82)
+    dec, ev = mkckks.Decryptor(params), mkckks.Evaluator(params)
+    rng = np.random.default_rng(SEED + 83)
+    bound = -math.log2(params.scale) + params.logslots + 12
+    msgs = [rng.uniform(-0.25, 0.25, params.slots)
+            + 1j * rng.uniform(-0.25, 0.25, params.slots) for _ in users]
+    cts = [enc.encrypt_msg(mkckks.Message(value=m), pks[u])
+           for m, u in zip(msgs, users)]
+    ct = cts[0]
+    for c in cts[1:]:
+        ct = ev.add_new(ct, c)
+    msg = sum(msgs)
+
+    def check(out, want, what):
+        got = dec.decrypt(out, sks).value
+        err = math.log2(max(float(np.max(np.abs(got - want))), 1e-300))
+        if not (out.ids == tuple(users) and np.all(np.isfinite(got))
+                and err <= bound):
+            raise AssertionError(f"CKKS {what}: ids {out.ids}, log2 err "
+                                 f"{err:.2f} (bound {bound:.2f})")
+        return round(err, 2)
+
+    ckks_err = {f"rot {r}": check(ev.rotate_new(ct, r, rtk),
+                                  np.roll(msg, -r), f"rotation by {r}")
+                for r in (1, 5, -1)}
+    ckks_err["conj"] = check(ev.conjugate_new(ct, cjk), np.conj(msg),
+                             "conjugation")
+    ckks_ms = (cuda_ms(lambda: ev.rotate_new(ct, 1, rtk), 3, 1),
+               cuda_ms(lambda: ev.conjugate_new(ct, cjk), 3, 1))
+
+    a = ev.add_new(cts[0], cts[1])
+    b = ev.add_new(cts[2], cts[3])
+    prod = ev.mul_relin_new(a, b, rlk)
+    check(prod, (msgs[0] + msgs[1]) * (msgs[2] + msgs[3]), "mult")
+    t0 = time.perf_counter()
+    loaded = mkrlwe.RelinearizationKeySet()
+    with tempfile.TemporaryDirectory(prefix="mkhe_smoke_") as td:
+        path = os.path.join(td, "f.npz")
+        for uid in users:
+            serialize.save_relin_key(path, rlk.get(uid))
+            key = serialize.load_relin_key(path)
+            if not all(torch.equal(getattr(key, f), getattr(rlk.get(uid), f))
+                       for f in "bdv") or key.id != uid:
+                raise AssertionError(f"relin key of {uid} changed on disk")
+            loaded.add(key)
+        serialize.save_secret_key(path, sks.get("user0"))
+        sk = serialize.load_secret_key(path)
+        top = params.n // 4     # the largest default rotation
+        serialize.save_rotation_key(path, rtk.get("user3", top))
+        rk = serialize.load_rotation_key(path)
+        serialize.save_ciphertext(path, prod.ct, scale=prod.scale)
+        pct, pscale = serialize.load_ciphertext(path)
+    if not (torch.equal(sk.data, sks.get("user0").data)
+            and rk.rot_idx == top and rk.id == "user3"
+            and torch.equal(rk.data, rtk.get("user3", top).data)
+            and pct.ids == prod.ids and pscale == prod.scale
+            and torch.equal(pct.data, prod.ct.data)):
+        raise AssertionError("a key or the ciphertext changed on disk")
+    ser_s = time.perf_counter() - t0
+    if not torch.equal(ev.mul_relin_new(a, b, loaded).ct.data, prod.ct.data):
+        raise AssertionError("the mult with the loaded relin keys differs")
+    del kgen, sks, rlk, pks, rtk, cjk, loaded, enc, dec, ev, cts, ct, a, b
+
+    # -- BFV, 4 parties: rotation and conjugation, exact ------------------
+    kgen = mkbfv.KeyGenerator(params_bfv, seed=SEED + 91)
+    sks, pks = mkrlwe.SecretKeySet(), {}
+    rtk, cjk = mkrlwe.RotationKeySet(), mkrlwe.ConjugationKeySet()
+    for uid in users:
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        sks.add(sk)
+        for r in (1, 2):
+            rtk.add(kgen.gen_rotation_key(r, sk))
+        cjk.add(kgen.gen_conjugation_key(sk))
+    benc = mkbfv.Encryptor(params_bfv, seed=SEED + 92)
+    bdec, bev = mkbfv.Decryptor(params_bfv), mkbfv.Evaluator(params_bfv)
+    t, nh = params_bfv.t, params_bfv.n // 2
+    vals = [rng.integers(0, t, params_bfv.n) for _ in users]
+    ct = benc.encrypt_msg(vals[0], pks[users[0]])
+    for v, u in zip(vals[1:], users[1:]):
+        ct = bev.add_new(ct, benc.encrypt_msg(v, pks[u]))
+    m = np.mod(sum(vals), t)
+    m = np.where(m > t // 2, m - t, m)
+
+    def exact(out, want, what):
+        got = bdec.decrypt(out, sks)
+        if not (out.ids == tuple(users) and np.array_equal(got, want)):
+            raise AssertionError(f"BFV {what}: {int((got != want).sum())} "
+                                 "slots differ")
+
+    for r in (1, 3):
+        last = bev.rotate_new(ct, r, rtk)
+        exact(last, np.concatenate([np.roll(m[:nh], -r),
+                                    np.roll(m[nh:], -r)]),
+              f"rotation by {r}")
+    exact(bev.conjugate_new(ct, cjk), np.concatenate([m[nh:], m[:nh]]),
+          "conjugation")
+    try:
+        for on in (False, True):
+            config.ntt_mxu_tail = on
+            if not torch.equal(bev.rotate_new(ct, 3, rtk).data, last.data):
+                raise AssertionError(f"the BFV rotation by 3 with the split "
+                                     f"{'on' if on else 'off'} differs")
+    finally:
+        config.ntt_mxu_tail = False
+    bfv_ms = (cuda_ms(lambda: bev.rotate_new(ct, 1, rtk), 3, 1),
+              cuda_ms(lambda: bev.conjugate_new(ct, cjk), 3, 1))
+    del kgen, sks, pks, rtk, cjk, benc, bdec, bev, ct, last
+
+    # -- the u64 oracle gate (bench.py::oracle_cross_check) ---------------
+    t0 = time.perf_counter()
+    err64, err32, _ = oracle.cross_validate("pn15", params, seed=17)
+    oracle_s = time.perf_counter() - t0
+    if not (err64 <= bound and err32 <= bound and abs(err64 - err32) <= 6):
+        raise AssertionError(f"u64 oracle gate: err64 {err64:.2f}, err32 "
+                             f"{err32:.2f}, bound {bound:.2f}")
+
+    # -- the examples, on the card ----------------------------------------
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ex_err = two_party_ckks.main()
+        two_party_bfv.main()
+    ex_lines = [ln for ln in out.getvalue().splitlines()
+                if "verified" in ln or "EXACT" in ln]
+    if len(ex_lines) != 2:
+        raise AssertionError(f"the examples printed {out.getvalue()!r}")
+
+    launches = ntt_cuda.counters()
+    if min(launches["ntt_fwd"], launches["ntt_inv"]) < 1:
+        raise AssertionError(f"phase 8 launched no NTT kernel: {launches}")
+    r3 = lambda xs: [round(x, 3) for x in xs]
+    print(f"[8 api] default CRS sets = the JAX rule (0, -1..-4, 2^i for i < "
+          f"logN - 1), GB on the card: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in crs_gb.items())
+          + f"; held before the phase {held_gib:.2f} GiB; CKKS PN15QP880 4 "
+          f"parties, default rotation keys and conjugation keys: log2 err "
+          f"{ckks_err} (bound {bound:.2f}); ms rotate_new(1) / "
+          f"conjugate_new {r3(ckks_ms)}; serialize: 4 relin keys, a secret "
+          f"key, a rotation key and the product ciphertext equal bit for bit"
+          f" after save + load, the mult with the loaded keys equal, "
+          f"{ser_s:.1f} s; BFV PN15QP880 4 parties: rotate_new 1 and 3 and "
+          f"conjugate_new exact, rotation by 3 equal with the split off and "
+          f"on, ms rotate_new(1) / conjugate_new {r3(bfv_ms)}; u64 oracle "
+          f"pn15 seed 17: err64 {err64:.2f} err32 {err32:.2f} (bound "
+          f"{bound:.2f}, |diff| {abs(err64 - err32):.2f} <= 6), "
+          f"{oracle_s:.1f} s; examples on the card: ckks err {ex_err:.2e}, "
+          f"{' | '.join(ex_lines)}; peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    print(f"[8 api launches] "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -928,6 +1140,7 @@ def main() -> None:
     for name, _, _ in MAIN:
         stats[name]["launches"] = sum(p[name] for p in phases)
     phase_fused(params, params_bfv, params_cnn)
+    phase_api(params, params_bfv, params_cnn)
     stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -45,7 +45,8 @@ def ckks_parameters(rlwe: mkrlwe.Parameters, logslots: int, scale: float
 def bfv_parameters(rlwe: mkrlwe.Parameters, qmul_moduli: Sequence[int],
                    t: int) -> mkbfv.Parameters:
     """mkbfv Parameters over rlwe (built by rlwe_parameters with the JAX
-    package's CRS 0, -1 and -3)."""
+    package's CRS: 0, -1 and -3 for a mult, and the indices of any
+    rotation or conjugation)."""
     return mkbfv.Parameters(rlwe=rlwe,
                             qmul_moduli=tuple(int(q) for q in qmul_moduli),
                             t=int(t))

@@ -1,5 +1,6 @@
-"""Multi-key BFV evaluator (port of mkhe_tpu/mkbfv/evaluator.py:20-131):
-add/sub with id-set union, MulRelin, its batched and its hoisted form.
+"""Multi-key BFV evaluator (port of mkhe_tpu/mkbfv/evaluator.py): add/sub
+with id-set union, MulRelin, its batched and its hoisted form, and the
+slot rotation and conjugation on the CKKS rotation core (mkrlwe.keyswitch).
 PyTorch runs eagerly, so the JAX package's jitted cores become direct
 calls, and the batched MulRelin's vmap a batch axis through the same
 core."""
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..mkrlwe import keyswitch as ksw
 from ..mkrlwe.elements import Ciphertext, union_ids
 from .params import Parameters
 from .keys import RelinearizationKeySet
@@ -94,3 +96,17 @@ class Evaluator:
             self.params, Ciphertext(ids=h0.ids, data=h0.lift),
             Ciphertext(ids=h1.ids, data=h1.resc), rlk,
             dec0=h0.dec_lift, dec1=h1.dec_resc)
+
+    def rotate_new(self, ct: Ciphertext, rot_idx: int, rtk_set
+                   ) -> Ciphertext:
+        """Rotate the columns of both slot rows (two rows of N/2) left by
+        rot_idx (mkhe_tpu/mkbfv/evaluator.py:133-153); ct itself at 0.
+        Steps and KeyError as the CKKS rotate_new (ksw.rotation_steps)."""
+        rp = self.params.rlwe
+        for k in ksw.rotation_steps(rp, rot_idx):
+            ct = ksw.rotate(rp, ct, k, rtk_set.stacked(ct.ids, k))
+        return ct
+
+    def conjugate_new(self, ct: Ciphertext, cjk_set) -> Ciphertext:
+        """Swap the two slot rows (the Galois element 2N - 1)."""
+        return ksw.conjugate(self.params.rlwe, ct, cjk_set.stacked(ct.ids))

@@ -28,3 +28,10 @@ class Ciphertext:
 @dataclasses.dataclass
 class Message:
     value: np.ndarray  # complex128 (slots,)
+
+
+def new_message(params, values=None) -> Message:
+    """A Message of params.slots zeros, or of the given values."""
+    if values is None:
+        values = np.zeros(params.slots, np.complex128)
+    return Message(value=np.asarray(values, np.complex128))

@@ -267,23 +267,10 @@ class Evaluator:
 
     def rotate_new(self, ct: Ciphertext, rot_idx: int, rtk_set
                    ) -> Ciphertext:
-        """Rotate the slots left by rot_idx. Without a CRS at rot_idx it
-        rotates by the powers of two of rot_idx's binary form, in
-        ascending order (evaluator.go:516-524), and raises KeyError if
-        one of them has no CRS either."""
-        rot_idx = self._normalize_rot(rot_idx)
-        if rot_idx == 0:
-            return ct
-        crs = self.params.rlwe.crs
-        if rot_idx in crs:
-            return self._rotate(ct, rot_idx, rtk_set, None)
-        steps = [1 << b for b in range(rot_idx.bit_length())
-                 if rot_idx >> b & 1]
-        missing = [k for k in steps if k not in crs]
-        if missing:
-            raise KeyError(f"no CRS for rotation {rot_idx} nor for its "
-                           f"power-of-two steps {missing}; call add_crs")
-        for k in steps:
+        """Rotate the slots left by rot_idx: in one key switch if rot_idx
+        has a CRS, else by its power-of-two steps (ksw.rotation_steps,
+        which raises KeyError if one of them has no CRS either)."""
+        for k in ksw.rotation_steps(self.params.rlwe, rot_idx):
             ct = self._rotate(ct, k, rtk_set, None)
         return ct
 

@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import math
+from typing import Tuple
 
 from .. import config
 from .. import mkrlwe
@@ -94,14 +97,86 @@ def new_parameters(logn: int, logslots: int, q0_bits: float,
                    gamma: int = 2, q0_count: int = 2,
                    limbs_per_level: int = 2,
                    p_bits: float = 28.4, p_count: int = 2,
+                   extra_crs=(), unsafe_skip_noise_guard: bool = False,
                    device=None) -> Parameters:
     """q0_count primes ~q0_bits for the base modulus, `levels` rescaling
     levels of limbs_per_level primes each (product ~ scale), and p_count
-    special primes; alpha = p_count // gamma limbs per gadget digit."""
+    special primes; alpha = p_count // gamma limbs per gadget digit.
+    extra_crs and unsafe_skip_noise_guard go to mkrlwe.new_parameters."""
     q_moduli, p = select_moduli(logn, q0_bits, level_bits, levels,
                                 q0_count, limbs_per_level, p_bits,
                                 p_count)
-    rl = mkrlwe.new_parameters(logn, q_moduli, p, gamma=gamma, device=device)
+    rl = mkrlwe.new_parameters(
+        logn, q_moduli, p, gamma=gamma, extra_crs=extra_crs,
+        unsafe_skip_noise_guard=unsafe_skip_noise_guard, device=device)
+    return Parameters(rlwe=rl, logslots=logslots, scale=scale)
+
+
+def from_literal(doc, device=None) -> Parameters:
+    """Parameters from a reference-style ParametersLiteral JSON document
+    (a path or a dict; the schema of the reference's `-params` flag,
+    mkrlwe/mkrlwe_test.go:18,56-60), with mkhe_tpu.mkckks.from_literal's
+    prime selection:
+
+        {"LogN": 14, "LogSlots": 13, "Q": [primes...], "P": [primes...],
+         "Scale": 2^52, "Gamma": 2}
+
+    Q / P entries may be ints, hex strings or bit sizes (floats < 64).
+    Each 64-bit modulus maps to a pair of ~half-width u32 NTT primes whose
+    product is within ~1e-3 of it (a triple above ~57.8 bits: limbs stay
+    below 2^29); total modulus size, scale and level budget are kept."""
+    if isinstance(doc, str):
+        with open(doc) as f:
+            doc = json.load(f)
+    logn = int(doc["LogN"])
+    logslots = int(doc.get("LogSlots", logn - 1))
+    scale = float(doc.get("Scale", 2.0 ** 40))
+    gamma = int(doc.get("Gamma", 2))
+
+    def bits_of(entry) -> float:
+        if isinstance(entry, str):
+            return math.log2(int(entry, 0))
+        if isinstance(entry, float) and entry < 64:
+            return entry
+        return math.log2(int(entry))
+
+    used = set()
+
+    def split(bits: float, parts: int) -> Tuple[int, ...]:
+        """`parts` distinct u32 NTT primes with product ~ 2^bits."""
+        pool = [p for p in ntt_primes(logn, bits / parts, 24 + 2 * parts)
+                if p not in used]
+        target = 2.0 ** bits
+        if parts == 1:
+            best = min(pool, key=lambda p: abs(p / target - 1.0))
+            used.add(best)
+            return (best,)
+        best = None
+        for i in range(len(pool)):
+            for j in range(i + 1, len(pool)):
+                base = pool[i] * pool[j]
+                if parts == 2:
+                    err = abs(base / target - 1.0)
+                    if best is None or err < best[0]:
+                        best = (err, (pool[i], pool[j]))
+                else:
+                    for k in range(j + 1, len(pool)):
+                        err = abs(base * pool[k] / target - 1.0)
+                        if best is None or err < best[0]:
+                            best = (err, (pool[i], pool[j], pool[k]))
+        used.update(best[1])
+        return best[1]
+
+    def to_limbs(entries) -> Tuple[int, ...]:
+        out = []
+        for b in map(bits_of, entries):
+            out.extend(split(b, 1 if b <= 28.9 else 2 if b <= 57.8 else 3))
+        return tuple(out)
+
+    q_moduli = to_limbs(doc["Q"])
+    p_moduli = to_limbs(doc["P"])
+    rl = mkrlwe.new_parameters(logn, q_moduli, p_moduli, gamma=gamma,
+                               device=device)
     return Parameters(rlwe=rl, logslots=logslots, scale=scale)
 
 

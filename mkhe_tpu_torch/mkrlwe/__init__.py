@@ -1,10 +1,12 @@
 """Multi-key RLWE core (port of mkhe_tpu/mkrlwe)."""
 
 from .params import Parameters, new_parameters, add_crs
-from .elements import Ciphertext, HoistedCiphertext, drop_level, union_ids
+from .elements import (Ciphertext, HoistedCiphertext, new_ciphertext,
+                       pad_ciphertext, drop_level, union_ids)
 from .keys import (SecretKey, PublicKey, SwitchingKey, RelinearizationKey,
                    RotationKey, ConjugationKey, SecretKeySet, PublicKeySet,
                    RelinearizationKeySet, RotationKeySet, ConjugationKeySet)
+from .idset import IDSet
 from .keygen import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
@@ -12,9 +14,10 @@ from . import keyswitch
 
 __all__ = [
     "Parameters", "new_parameters", "add_crs",
-    "Ciphertext", "HoistedCiphertext", "drop_level", "union_ids",
+    "Ciphertext", "HoistedCiphertext", "new_ciphertext", "pad_ciphertext",
+    "drop_level", "union_ids",
     "SecretKey", "PublicKey", "SwitchingKey", "RelinearizationKey",
     "RotationKey", "ConjugationKey", "SecretKeySet", "PublicKeySet",
     "RelinearizationKeySet", "RotationKeySet", "ConjugationKeySet",
-    "KeyGenerator", "Encryptor", "Decryptor", "keyswitch",
+    "IDSet", "KeyGenerator", "Encryptor", "Decryptor", "keyswitch",
 ]

@@ -22,9 +22,37 @@ class Ciphertext:
     def level(self) -> int:
         return self.data.shape[-2] - 1
 
+    @property
+    def c0(self) -> torch.Tensor:
+        return self.data[0]
+
+    def party(self, pid: str) -> torch.Tensor:
+        return self.data[1 + self.ids.index(pid)]
+
+
+def new_ciphertext(params, ids: Tuple[str, ...], level: int) -> Ciphertext:
+    """A zero ciphertext over the sorted ids at level, on params' device."""
+    ids = tuple(sorted(ids))
+    return Ciphertext(ids=ids, data=torch.zeros(
+        (len(ids) + 1, level + 1, params.n), dtype=torch.int64,
+        device=params.device))
+
 
 def union_ids(a: Tuple[str, ...], b: Tuple[str, ...]) -> Tuple[str, ...]:
     return tuple(sorted(set(a) | set(b)))
+
+
+def pad_ciphertext(ct: Ciphertext, ids: Tuple[str, ...]) -> Ciphertext:
+    """Zero-pad to the union with ids (reference PadCiphertext,
+    mkrlwe/elements.go:91-105); ct itself if nothing is added."""
+    new_ids = union_ids(ct.ids, ids)
+    if new_ids == ct.ids:
+        return ct
+    out = ct.data.new_zeros((len(new_ids) + 1, *ct.data.shape[1:]))
+    out[0] = ct.data[0]
+    for i, pid in enumerate(ct.ids):
+        out[1 + new_ids.index(pid)] = ct.data[1 + i]
+    return Ciphertext(ids=new_ids, data=out)
 
 
 def drop_level(ct: Ciphertext, levels: int) -> Ciphertext:

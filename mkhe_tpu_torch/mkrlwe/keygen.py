@@ -107,6 +107,19 @@ class KeyGenerator:
         s = sampling.ternary(self.gen, p.n, p.device)
         return SecretKey(id=pid, data=_secret_key_core(p, s))
 
+    def gen_secret_key_sparse(self, pid: str, hw: int) -> SecretKey:
+        """Secret with exactly hw non-zero coefficients
+        (GenSecretKeySparse, keygen.go:78-85)."""
+        p = self.params
+        s = sampling.ternary_sparse(self.gen, p.n, hw, p.device)
+        return SecretKey(id=pid, data=_secret_key_core(p, s))
+
+    def gen_secret_key_gaussian(self, pid: str) -> SecretKey:
+        """Gaussian secret (GenSecretKeyGaussian, keygen.go:63-65)."""
+        p = self.params
+        s = sampling.gaussian(self.gen, p.n, p.device, sigma=p.sigma)
+        return SecretKey(id=pid, data=_secret_key_core(p, s))
+
     def _gaussian_qp(self, *batch) -> torch.Tensor:
         """Gaussian error, extended to QP, NTT domain, Montgomery form."""
         p = self.params
@@ -167,8 +180,11 @@ class KeyGenerator:
             rot *= 2
 
     def gen_conjugation_key(self, sk: SecretKey) -> ConjugationKey:
-        """Needs the CRS at -2."""
+        """Needs the CRS at -2 (a default one)."""
         p = self.params
+        if -2 not in p.crs:
+            raise KeyError("no CRS for conjugation (index -2); call "
+                           "add_crs(-2)")
         s_conj = p.ring_qp.permute_ntt(sk.data, galois_element_conj(p.n))
         sg = self.gen_switching_key(SecretKey(id=sk.id, data=s_conj)).data
         return ConjugationKey(id=sk.id,

@@ -72,6 +72,12 @@ class KeySet:
             raise KeyError(f"no key for id {pid!r}")
         return self.value[pid]
 
+    def delete(self, pid: str):
+        self.value.pop(pid, None)
+
+    def ids(self) -> Tuple[str, ...]:
+        return tuple(sorted(self.value))
+
 
 class SecretKeySet(KeySet):
     pass
@@ -82,9 +88,9 @@ class PublicKeySet(KeySet):
 
 
 class _StackedKeySet(KeySet):
-    """A KeySet whose stacks over ids are memoised; add drops them, so a
-    key added later is never shadowed (the JAX package's RotationKeySet
-    never drops its stacks)."""
+    """A KeySet whose stacks over ids are memoised; add and delete drop
+    them, so a key added or deleted later is never shadowed (the JAX
+    package's RotationKeySet never drops its stacks)."""
 
     def __init__(self):
         super().__init__()
@@ -92,6 +98,10 @@ class _StackedKeySet(KeySet):
 
     def add(self, key):
         self._store(key)
+        self._cache.clear()
+
+    def delete(self, pid: str):
+        super().delete(pid)
         self._cache.clear()
 
     def _store(self, key):

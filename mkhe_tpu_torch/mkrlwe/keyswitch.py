@@ -356,6 +356,25 @@ def _switch_parties(params: Parameters, c0, dec, swks, a, level: int
     return torch.cat([c0.unsqueeze(-3), both[..., 1:, :, :]], dim=-3)
 
 
+def rotation_steps(params: Parameters, rot_idx: int) -> list:
+    """The rotations that make up one by rot_idx slots (mod N/2): itself
+    if it has a CRS, else the powers of two of its binary form in
+    ascending order (evaluator.go:516-524); none at 0. Raises KeyError
+    naming the steps that have no CRS (the JAX package recurses without
+    end there)."""
+    rot_idx %= params.n // 2
+    if rot_idx == 0:
+        return []
+    if rot_idx in params.crs:
+        return [rot_idx]
+    steps = [1 << b for b in range(rot_idx.bit_length()) if rot_idx >> b & 1]
+    missing = [k for k in steps if k not in params.crs]
+    if missing:
+        raise KeyError(f"no CRS for rotation {rot_idx} nor for its "
+                       f"power-of-two steps {missing}; call add_crs")
+    return steps
+
+
 def rotation_tables(params: Parameters, rot_idx: int):
     """The coefficient-domain Galois map of a rotation by rot_idx slots
     (X -> X^g with sign fold, keyswitch.go:266-296) as (src, sign)

@@ -5,12 +5,14 @@ polynomial vector, NTT domain by fiat, stored in Montgomery form. Each is
 drawn from a torch.Generator seeded from (crs_seed, idx), so Parameters
 built independently on the same kind of device agree.
 
-Parameters draw only 0 (public and relinearization keys), -1 (the
-relinearization u) and -3 (the second half of the MKBFV relinearization
-key, mkhe_tpu/mkbfv/keygen.py:77-78). The JAX package also draws -2 and
-every power of two below N/2 up front; here a caller adds the rotation
-and conjugation CRS it needs with add_crs (rotation by k: index k;
-conjugation: -2). At PN15QP880 each CRS is 117 MB of int64.
+new_parameters draws the JAX package's index set, all of it at
+construction (default_crs_indices): 0 (public and relinearization keys),
+-1 (the relinearization u), -2 (conjugation), -3 and -4 (the MKBFV
+relinearization key), every power of two below N/2 (rotations) and the
+caller's extra_crs. Nothing is drawn later, so a fused capture (fuse.py)
+never builds a CRS; add_crs adds one more index by hand. At PN15QP880
+each CRS is 14 x 32 x 2^15 int64, 117 MB, and the 19 default ones take
+2.23 GB of the device.
 """
 
 from __future__ import annotations
@@ -26,21 +28,15 @@ from .. import config
 from ..ops import modmath as mm
 from ..ops import sampling
 from ..ops.ring import Ring
-
-SLICE_CRS = (0, -1, -3)
-
-# HE Standard v1.1, ternary secret, error stddev 3.2: the largest log2(QP)
-# with 128-bit security for each logN (mkhe_tpu/utils/security.py).
-MAX_LOGQP_128 = {10: 27, 11: 54, 12: 109, 13: 218, 14: 438, 15: 881,
-                 16: 1772, 17: 3576}
+from ..utils import security
 
 
-def max_logqp_128(logn: int) -> int:
-    """Largest log2(QP) at 128-bit security; above logN 17 the 2^17 entry
-    scaled linearly in N, as the JAX package does."""
-    if logn in MAX_LOGQP_128:
-        return MAX_LOGQP_128[logn]
-    return int(MAX_LOGQP_128[17] * (1 << logn) / (1 << 17))
+def default_crs_indices(logn: int, extra_crs=()) -> Tuple[int, ...]:
+    """The CRS indices new_parameters draws, the JAX package's rule
+    (mkhe_tpu/mkrlwe/params.py:178-180): 0, -1, -2, -3, -4, then 2^i for
+    i < logN - 1, then extra_crs."""
+    return ((0, -1, -2, -3, -4) + tuple(1 << i for i in range(logn - 1))
+            + tuple(int(i) for i in extra_crs))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -140,10 +136,11 @@ def gen_crs(ring_qp: Ring, beta: int, seed: int, idx: int) -> torch.Tensor:
 
 def build_parameters(logn: int, q_moduli, p_moduli, gamma: int,
                      sigma: float, crs_seed: int, device,
-                     crs: Dict[int, torch.Tensor] | None = None
-                     ) -> Parameters:
-    """Assemble Parameters from moduli; draws the SLICE_CRS unless a CRS
-    dict is given (convert.py passes the JAX package's)."""
+                     crs: Dict[int, torch.Tensor] | None = None,
+                     extra_crs=()) -> Parameters:
+    """Assemble Parameters from moduli; draws the default CRS set and
+    extra_crs unless a CRS dict is given (convert.py passes the JAX
+    package's)."""
     device = config.get_device(device)
     ring_q = Ring.create(q_moduli, logn, device)
     ring_p = Ring.create(p_moduli, logn, device)
@@ -154,7 +151,7 @@ def build_parameters(logn: int, q_moduli, p_moduli, gamma: int,
     if crs is None:
         beta_max = -(-len(q_moduli) // max(1, len(p_moduli) // gamma))
         crs = {idx: gen_crs(ring_qp, beta_max, crs_seed, idx)
-               for idx in SLICE_CRS}
+               for idx in default_crs_indices(logn, extra_crs)}
     return Parameters(
         logn=logn, q_moduli=tuple(q_moduli), p_moduli=tuple(p_moduli),
         gamma=gamma, sigma=sigma, crs_seed=crs_seed, device=device,
@@ -175,12 +172,15 @@ def add_crs(params: Parameters, idx: int) -> Parameters:
 
 def new_parameters(logn: int, q_moduli, p_moduli, gamma: int,
                    sigma: float = 3.2, crs_seed: int = 0x6d6b6865,
+                   extra_crs=(), unsafe_skip_noise_guard: bool = False,
                    device=None) -> Parameters:
     """mkhe_tpu.mkrlwe.new_parameters: the HE-Standard security warning
-    and the KKLSS noise guard, then rings and the CRS."""
+    and the KKLSS noise guard (unsafe_skip_noise_guard=True builds what it
+    rejects, to show that such a mult is destroyed), then rings and the
+    default CRS set plus extra_crs."""
     if logn >= 10:
-        total = sum(math.log2(q) for q in (*q_moduli, *p_moduli))
-        if total > max_logqp_128(logn):
+        total = security.logqp(q_moduli, p_moduli)
+        if security.security_bits(logn, total) < 128:
             warnings.warn(
                 f"parameters are below 128-bit HE-Standard security: "
                 f"logN={logn}, logQP={total:.1f}", stacklevel=2)
@@ -193,11 +193,11 @@ def new_parameters(logn: int, q_moduli, p_moduli, gamma: int,
         sum(math.log2(q) for q in q_moduli[d0:d0 + alpha])
         for d0 in range(0, len(q_moduli), alpha))
     p_bits_total = sum(math.log2(p) for p in p_moduli)
-    if 2 * max_digit_bits > p_bits_total + 40:
+    if 2 * max_digit_bits > p_bits_total + 40 and not unsafe_skip_noise_guard:
         raise ValueError(
             f"gadget digit too large: B ~ 2^{max_digit_bits:.0f} but "
             f"P ~ 2^{p_bits_total:.0f}; the KKLSS t-path noise B^2/P "
             "would swamp the plaintext (choose smaller "
             "alpha = PCount/gamma)")
     return build_parameters(logn, tuple(q_moduli), tuple(p_moduli), gamma,
-                            sigma, crs_seed, device)
+                            sigma, crs_seed, device, extra_crs=extra_crs)

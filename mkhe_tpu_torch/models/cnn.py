@@ -91,6 +91,18 @@ REF = Layout()
 # layout.
 MINI = Layout(image=8, fc_units=32, quad=128, gap=32)
 
+# REF's fields under the JAX package's module names
+IMAGE = REF.image
+NUM_KERNELS = REF.num_kernels
+KSIZE = REF.ksize
+BLOCK = REF.block   # stride-2 sub-image size
+CONV_OUT = REF.conv_out
+FC_UNITS = REF.fc_units
+CLASSES = REF.classes
+GAP = REF.gap
+# rotation indices needed beyond powers of two (cnn/cnn_test.go:185-189)
+EXTRA_ROTS = REF.extra_rots
+
 
 def load_weights():
     """(kernels, fc1, fc2, b1, b2) of the model, read from the JAX

@@ -2,10 +2,12 @@
 
 Port of mkhe_tpu/ops/sampling.py, driven by an explicit torch.Generator
 (on the device where the samples are drawn) instead of jax.random keys:
-uniform mod q_i, ternary with P(0) = 1/2, and a discrete gaussian
-(sigma = 3.2, truncated at 6 sigma) by inverse CDT. The distributions are
-the JAX package's; the bits are not (a torch.Generator is not threefry),
-so tests that need both packages to agree feed them the same samples.
+uniform mod q_i, ternary with P(0) = 1/2, a discrete gaussian (sigma =
+3.2, truncated at 6 sigma) by inverse CDT, a sparse ternary with a fixed
+Hamming weight, and RNS lifts of the gaussian and the ternary. The
+distributions are the JAX package's; the bits are not (a
+torch.Generator is not threefry), so tests that need both packages to
+agree feed them the same samples.
 """
 
 from __future__ import annotations
@@ -67,3 +69,28 @@ def gaussian(gen: torch.Generator, n: int, device, sigma: float = 3.2,
                       device=device)
     idx = torch.searchsorted(thresholds, u, right=True)
     return ks[idx.clamp(max=len(ks) - 1)]
+
+
+def ternary_sparse(gen: torch.Generator, n: int, hw: int, device
+                   ) -> torch.Tensor:
+    """Exactly hw non-zero coefficients, each +-1 with equal probability
+    (lattigo's NewTernarySamplerSparse, GenSecretKeySparse, keygen.go:
+    78-85). int64 (n,)."""
+    pos = torch.randperm(n, generator=gen, device=device)[:hw]
+    signs = torch.randint(0, 2, (hw,), generator=gen, dtype=torch.int64,
+                          device=device) * 2 - 1
+    return torch.zeros(n, dtype=torch.int64, device=device).index_put_(
+        (pos,), signs)
+
+
+def gaussian_rns(gen: torch.Generator, ring: Ring, *batch,
+                 sigma: float = 3.2) -> torch.Tensor:
+    """Gaussian error lifted to RNS, shape (*batch, L, N)."""
+    e = gaussian(gen, math.prod(batch) * ring.n, ring.device, sigma=sigma)
+    return lift_signed(e.reshape(*batch, ring.n), ring)
+
+
+def ternary_rns(gen: torch.Generator, ring: Ring, *batch) -> torch.Tensor:
+    """Ternary values lifted to RNS, shape (*batch, L, N)."""
+    t = ternary(gen, math.prod(batch) * ring.n, ring.device)
+    return lift_signed(t.reshape(*batch, ring.n), ring)

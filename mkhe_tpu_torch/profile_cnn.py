@@ -91,9 +91,10 @@ class Setup:
 
 def setup(params, layout: cnn.Layout = cnn.REF, weights=None,
           seed: int = SEED) -> Setup:
-    """The CRS of layout.extra_rots, of the powers of two below N/2 and
-    of conjugation; both parties' key pairs, relinearization, rotation
-    and conjugation keys from seed; the model (load_weights() unless
+    """The CRS of layout.extra_rots (those of the powers of two below N/2
+    and of conjugation are default ones); both parties' key pairs,
+    relinearization, rotation and conjugation keys from seed; the model
+    (load_weights() unless
     weights are given) encrypted under modelOwner from seed + 1; the fc2
     mask plaintext on the device; and the stacked rotation keys and Galois
     tables of every index, so that no inference builds them."""
@@ -101,7 +102,7 @@ def setup(params, layout: cnn.Layout = cnn.REF, weights=None,
     dev = params.rlwe.device
     rots = list(layout.extra_rots) + [1 << i for i in range(params.logn - 1)]
     t0 = time.perf_counter()
-    for idx in rots + [-2]:
+    for idx in layout.extra_rots:
         params = params.add_crs(idx)
     kgen = mkrlwe.KeyGenerator(params.rlwe, seed=seed)
     sks, pks = mkrlwe.SecretKeySet(), {}

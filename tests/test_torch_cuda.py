@@ -662,3 +662,99 @@ def test_ntt_wrappers_capture_in_default_mode(gen, kernel):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_bfv_rotation_and_conjugation_match_cpu(gen):
+    """BFV rotate_new by 1 (its own CRS) and 3 (1 then 2) and
+    conjugate_new of a 2-party sum at logN 10 on the card, with the split
+    NTT on and off, equal the same calls on the CPU."""
+    import numpy as np
+    from mkhe_tpu_torch import config, convert, mkbfv, mkrlwe
+    q, qmul = ntt_primes(10, 26.5, 6), ntt_primes(10, 26.5, 6, skip=6)
+    cpu = mkbfv.new_parameters(10, q, qmul, ntt_primes(10, 28.0, 4),
+                               device="cpu")
+    rp = cpu.rlwe
+    gpu = convert.bfv_parameters(convert.rlwe_parameters(
+        rp.logn, rp.q_moduli, rp.p_moduli, rp.gamma, rp.sigma,
+        {i: a.numpy() for i, a in rp.crs.items()}, rp.crs_seed, "cuda"),
+        cpu.qmul_moduli, cpu.t)
+    kgen = mkbfv.KeyGenerator(cpu, seed=84)
+    rtk, cjk, pks = mkrlwe.RotationKeySet(), mkrlwe.ConjugationKeySet(), {}
+    for uid in ("a", "b"):
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        for r in (1, 2):
+            rtk.add(kgen.gen_rotation_key(r, sk))
+        cjk.add(kgen.gen_conjugation_key(sk))
+    g_rtk = convert.rotation_key_set(
+        {(u, r): k.data.numpy() for u, by in rtk.value.items()
+         for r, k in by.items()}, "cuda")
+    g_cjk = convert.conjugation_key_set(
+        {u: k.data.numpy() for u, k in cjk.value.items()}, "cuda")
+    enc, ev_c = mkbfv.Encryptor(cpu, seed=85), mkbfv.Evaluator(cpu)
+    rng = np.random.default_rng(86)
+    ct = ev_c.add_new(*(enc.encrypt_msg(rng.integers(0, cpu.t, cpu.n),
+                                        pks[u]) for u in ("a", "b")))
+    ct_g = mkrlwe.Ciphertext(ids=ct.ids, data=ct.data.cuda())
+    ev_g = mkbfv.Evaluator(gpu)
+    want = [ev_c.rotate_new(ct, 1, rtk), ev_c.rotate_new(ct, 3, rtk),
+            ev_c.conjugate_new(ct, cjk)]
+    try:
+        for on in (True, False):
+            config.ntt_mxu_tail = on
+            got = [ev_g.rotate_new(ct_g, 1, g_rtk),
+                   ev_g.rotate_new(ct_g, 3, g_rtk),
+                   ev_g.conjugate_new(ct_g, g_cjk)]
+            for g, w in zip(got, want):
+                assert g.ids == w.ids and torch.equal(g.data.cpu(), w.data)
+    finally:
+        config.ntt_mxu_tail = False
+
+
+def test_serialize_card_tensors(gen, tmp_path):
+    """Keys and a product ciphertext made on the card, saved and loaded
+    back onto the card (the default device): bit for bit, and a mult with
+    the loaded relin keys equals one with the originals."""
+    import numpy as np
+    from mkhe_tpu_torch import mkckks, mkrlwe
+    from mkhe_tpu_torch.utils import serialize
+    params = mkckks.new_parameters(10, 9, q0_bits=28.9, level_bits=20.0,
+                                   levels=3, scale=2.0 ** 40, p_bits=28.0,
+                                   p_count=4)
+    kgen = mkrlwe.KeyGenerator(params.rlwe, seed=87)
+    rlk, pks, loaded = (mkrlwe.RelinearizationKeySet(), {},
+                        mkrlwe.RelinearizationKeySet())
+    for uid in ("a", "b"):
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        rlk.add(kgen.gen_relinearization_key(sk, kgen.gen_secret_key(uid)))
+        path = str(tmp_path / f"rlk_{uid}.npz")
+        serialize.save_relin_key(path, rlk.get(uid))
+        loaded.add(serialize.load_relin_key(path))
+        for f in "bdv":
+            got = getattr(loaded.get(uid), f)
+            assert got.is_cuda and torch.equal(got, getattr(rlk.get(uid), f))
+    serialize.save_secret_key(str(tmp_path / "sk.npz"), sk)
+    sk2 = serialize.load_secret_key(str(tmp_path / "sk.npz"))
+    assert sk2.data.is_cuda and torch.equal(sk2.data, sk.data)
+    rtk = kgen.gen_rotation_key(4, sk)
+    serialize.save_rotation_key(str(tmp_path / "rtk.npz"), rtk)
+    rtk2 = serialize.load_rotation_key(str(tmp_path / "rtk.npz"))
+    assert rtk2.rot_idx == 4 and torch.equal(rtk2.data, rtk.data)
+    enc, ev = mkckks.Encryptor(params, seed=88), mkckks.Evaluator(params)
+    rng = np.random.default_rng(89)
+    cts = [enc.encrypt_msg(mkckks.Message(value=rng.uniform(
+        0.1, 0.5, params.slots)), pks[u]) for u in ("a", "b")]
+    prod = ev.mul_relin_new(*cts, rlk)
+    assert torch.equal(ev.mul_relin_new(*cts, loaded).ct.data, prod.ct.data)
+    serialize.save_ciphertext(str(tmp_path / "ct.npz"), prod.ct,
+                              scale=prod.scale)
+    ct, scale = serialize.load_ciphertext(str(tmp_path / "ct.npz"))
+    assert ct.data.is_cuda and scale == prod.scale
+    assert ct.ids == prod.ids and torch.equal(ct.data, prod.ct.data)
+
+
+def test_examples_on_card(gen, capsys):
+    from mkhe_tpu_torch.examples import two_party_bfv, two_party_ckks
+    assert two_party_ckks.main() < 1e-6
+    two_party_bfv.main()
+    out = capsys.readouterr().out
+    assert "(cuda:0)" in out and "rotation EXACT" in out

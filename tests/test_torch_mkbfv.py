@@ -10,6 +10,9 @@ for bit, at both tests/test_mkbfv.py parameter sets (logN 9: alpha 1 with
   - Evaluator.mul_relin_new and the hoisted mult at 2 and 4 parties, which
     also decrypt exactly to the plaintext product mod t;
   - the split NTT (config.ntt_mxu_tail) on and off give the same mult;
+  - Evaluator.rotate_new (with a CRS of its own, and by power-of-two
+    steps) and conjugate_new at 2 and 4 parties, with the split on and
+    off, which also decrypt exactly to the rotated slot rows;
   - the port's own path, keys from torch.Generators, decrypts exactly."""
 
 import numpy as np
@@ -41,6 +44,7 @@ torch.set_num_threads(1)
 
 LOGN = 9
 T = 65537
+ROTS = (1, 2)   # rotation keys: 3 goes by 1 then 2
 USERS = tuple(f"user{i}" for i in range(4))
 SETS = {   # tests/test_mkbfv.py:18-22 and :135-139
     1: (ntt_primes(LOGN, 26.5, 5), ntt_primes(LOGN, 26.5, 5, skip=5),
@@ -70,7 +74,7 @@ def _msg(rng):
 def carry_params(params):
     """JAX mkbfv Parameters -> the port's, same moduli and CRS."""
     rp = params.rlwe
-    crs = {i: np.asarray(rp.crs[i]) for i in (0, -1, -3)}
+    crs = {i: np.asarray(a) for i, a in rp.crs.items()}
     rl = convert.rlwe_parameters(rp.logn, rp.q_moduli, rp.p_moduli,
                                  rp.gamma, rp.sigma, crs, rp.crs_seed, "cpu")
     return convert.bfv_parameters(rl, params.qmul_moduli, params.t)
@@ -89,6 +93,12 @@ def ctx(request):
         sk, pks[uid] = kgen.gen_key_pair(uid)
         sks.add(sk)
         rlk.add(kgen.gen_relinearization_key_bfv(sk, kgen.gen_secret_key(uid)))
+    rkgen = jbfv.KeyGenerator(params, seed=64)
+    rtk, cjk = jrlwe.RotationKeySet(), jrlwe.ConjugationKeySet()
+    for uid in USERS:
+        for r in ROTS:
+            rtk.add(rkgen.gen_rotation_key(r, sks.get(uid)))
+        cjk.add(rkgen.gen_conjugation_key(sks.get(uid)))
     rng = np.random.default_rng(62 + alpha)
     msgs = [_msg(rng) for _ in USERS]
     enc = jbfv.Encryptor(params, seed=63)
@@ -99,8 +109,14 @@ def ctx(request):
     t_rlk = convert.relinearization_key_set(
         {uid: tuple(np.asarray(getattr(k, f)) for f in "bdv")
          for uid, k in rlk.value.items()}, "cpu")
+    t_rtk = convert.rotation_key_set(
+        {(uid, r): np.asarray(k.data) for uid, by_rot in rtk.value.items()
+         for r, k in by_rot.items()}, "cpu")
+    t_cjk = convert.conjugation_key_set(
+        {uid: np.asarray(k.data) for uid, k in cjk.value.items()}, "cpu")
     return dict(params=params, tparams=tp, ev=jbfv.Evaluator(params),
                 tev=tbfv.Evaluator(tp), rlk=rlk, t_rlk=t_rlk, t_sks=t_sks,
+                rtk=rtk, cjk=cjk, t_rtk=t_rtk, t_cjk=t_cjk,
                 pks=pks, msgs=msgs, cts=cts)
 
 
@@ -159,6 +175,54 @@ def test_split_ntt_gives_the_same_mult(ctx):
     finally:
         config.ntt_mxu_tail = False
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("k,split", [(2, False), (4, True), (4, False)])
+def test_rotate_and_conjugate_bit_identical(ctx, k, split):
+    """rotate_new by 1 (its own CRS) and 3 (1 then 2), and conjugate_new,
+    of the sum of k parties' ciphertexts: bit for bit the JAX package's,
+    and exact: two rows of N/2, a rotation moves the columns of both rows
+    (tests/test_mkbfv.py:121-131), conjugation swaps the rows."""
+    jev, tev = ctx["ev"], ctx["tev"]
+    ct = ctx["cts"][0]
+    for c in ctx["cts"][1:k]:
+        ct = jev.add_new(ct, c)
+    m = _cmod(sum(ctx["msgs"][:k]))
+    nh = (1 << LOGN) // 2
+    dec = tbfv.Decryptor(ctx["tparams"])
+    tct = _to_port(ct)
+    try:
+        config.ntt_mxu_tail = split
+        for rot in (1, 3):
+            want = jev.rotate_new(ct, rot, ctx["rtk"])
+            got = tev.rotate_new(tct, rot, ctx["t_rtk"])
+            assert got.ids == want.ids == USERS[:k]
+            _same(got.data, want.data)
+            np.testing.assert_array_equal(
+                dec.decrypt(got, ctx["t_sks"]),
+                np.concatenate([np.roll(m[:nh], -rot), np.roll(m[nh:], -rot)]))
+        want = jev.conjugate_new(ct, ctx["cjk"])
+        got = tev.conjugate_new(tct, ctx["t_cjk"])
+        _same(got.data, want.data)
+        np.testing.assert_array_equal(dec.decrypt(got, ctx["t_sks"]),
+                                      np.concatenate([m[nh:], m[:nh]]))
+        assert tev.rotate_new(tct, nh, ctx["t_rtk"]) is tct
+    finally:
+        config.ntt_mxu_tail = False
+
+
+def test_rotate_without_a_crs_raises(ctx):
+    """The port's parameters with the CRS 0, -1, -2, -3 and 1 alone: 3 =
+    1 + 2 has no CRS at 2, so rotate_new raises a KeyError naming it."""
+    rp = ctx["tparams"].rlwe
+    limited = convert.rlwe_parameters(
+        rp.logn, rp.q_moduli, rp.p_moduli, rp.gamma, rp.sigma,
+        {i: convert.to_numpy(rp.crs[i]) for i in (0, -1, -2, -3, 1)},
+        rp.crs_seed, "cpu")
+    tev = tbfv.Evaluator(convert.bfv_parameters(
+        limited, ctx["tparams"].qmul_moduli, T))
+    with pytest.raises(KeyError, match=r"steps \[2\]"):
+        tev.rotate_new(_to_port(ctx["cts"][0]), 3, ctx["t_rtk"])
 
 
 def test_add_sub_bit_identical(ctx):

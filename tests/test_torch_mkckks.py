@@ -255,13 +255,19 @@ def test_encoder_matches_jax(jctx, levels):
 
 @pytest.mark.parametrize("logn", range(10, 19))
 def test_security_table_matches_jax(logn):
-    """The port's copy of the HE-Standard 128-bit bound agrees with
-    mkhe_tpu.utils.security just inside and just outside the bound."""
+    """The port's copy of the HE-Standard table (utils.security, which
+    mkrlwe.new_parameters reads) agrees with mkhe_tpu.utils.security just
+    inside and just outside each level's bound."""
     from mkhe_tpu.utils import security
-    from mkhe_tpu_torch.mkrlwe.params import max_logqp_128
-    cap = max_logqp_128(logn)
-    assert security.security_bits(logn, cap) >= 128
-    assert security.security_bits(logn, cap + 0.5) < 128
+    from mkhe_tpu_torch.utils import security as tsec
+    for lvl in (128, 192, 256):
+        cap = (security.max_logqp(logn, lvl) if logn <= 17 else
+               int(security.max_logqp(17, lvl) * (1 << logn) / (1 << 17)))
+        for total in (cap, cap + 0.5):
+            assert tsec.security_bits(logn, total) == security.security_bits(
+                logn, total)
+        assert tsec.security_bits(logn, cap) >= lvl
+        assert tsec.security_bits(logn, cap + 0.5) < lvl
 
 
 @pytest.mark.parametrize("k", [2, 4])
@@ -292,7 +298,10 @@ def test_port_imports_no_jax():
             "mkhe_tpu_torch.mkbfv, mkhe_tpu_torch.convert, "
             "mkhe_tpu_torch.models, mkhe_tpu_torch.profile_cnn, "
             "mkhe_tpu_torch.profile_ntt, mkhe_tpu_torch.profile_ab, "
-            "mkhe_tpu_torch.ntt_probe\n"
+            "mkhe_tpu_torch.ntt_probe, mkhe_tpu_torch.utils.serialize, "
+            "mkhe_tpu_torch.utils.oracle, mkhe_tpu_torch.utils.crt, "
+            "mkhe_tpu_torch.examples.two_party_ckks, "
+            "mkhe_tpu_torch.examples.two_party_bfv\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'mkhe_tpu'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO)

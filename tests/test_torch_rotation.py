@@ -44,8 +44,9 @@ RECIPES = {
             scale=2.0 ** 40, p_bits=28.0, p_count=4),
 }
 # rotation keys: 1 and 4 (the fallback's steps for 5), 6 (not a power of
-# two, with its own CRS) and 511 (= -1 mod N/2). The port gets no CRS at
-# 2, so rotating by 3 must raise.
+# two, with its own CRS) and 511 (= -1 mod N/2). The port's parameters
+# carry the JAX package's CRS at PORT_CRS alone (no CRS at 2), so rotating
+# by 3 must raise.
 ROTS = (1, 4, 6, 511)
 PORT_CRS = (0, -1, -2) + ROTS
 
@@ -186,17 +187,29 @@ def test_key_cores_bit_identical(ctx):
 
 
 def test_port_keygen_normalises_and_checks_the_crs():
-    params = tckks.new_parameters(**RECIPES[1], device="cpu").add_crs(511)
+    """On parameters with an explicit, limited CRS dict (0, -1, -2, as
+    convert.rlwe_parameters builds them) plus add_crs(511): -1 becomes
+    511, and rotations 3 and 1 (gen_default_rotation_keys' first) raise
+    for want of their CRS; add_crs(1) then draws the default CRS 1."""
+    full = tckks.new_parameters(**RECIPES[1], device="cpu")
+    rp = full.rlwe
+    limited = convert.rlwe_parameters(
+        rp.logn, rp.q_moduli, rp.p_moduli, rp.gamma, rp.sigma,
+        {i: convert.to_numpy(rp.crs[i]) for i in (0, -1, -2)}, rp.crs_seed,
+        "cpu")
+    params = convert.ckks_parameters(limited, full.logslots,
+                                     full.scale).add_crs(511)
     kgen = trlwe.KeyGenerator(params.rlwe, seed=75)
     sk = kgen.gen_secret_key("user0")
     assert kgen.gen_rotation_key(-1, sk).rot_idx == 511
     with pytest.raises(KeyError, match="no CRS for rotation 3"):
         kgen.gen_rotation_key(3, sk)
     rtk = trlwe.RotationKeySet()
-    with pytest.raises(KeyError):
-        kgen.gen_default_rotation_keys(sk, rtk)   # no CRS at 1
+    with pytest.raises(KeyError, match="no CRS for rotation 1"):
+        kgen.gen_default_rotation_keys(sk, rtk)
     params = params.add_crs(1)
     assert trlwe.add_crs(params.rlwe, 1) is params.rlwe
+    assert torch.equal(params.rlwe.crs[1], rp.crs[1])
     kgen = trlwe.KeyGenerator(params.rlwe, seed=75)
     key = kgen.gen_rotation_key(1, sk)
     rtk.add(key)
@@ -242,7 +255,9 @@ def test_rotate_bit_identical(ctx, k, rot, lower, hoisted):
 
 @pytest.mark.parametrize("ctx", [1], indirect=True)
 def test_rotate_without_crs_raises(ctx):
-    """3 = 1 + 2 and the port has no CRS at 2: KeyError, no recursion."""
+    """3 = 1 + 2 and the port's parameters (the JAX package's CRS at
+    PORT_CRS alone, carried by convert.rlwe_parameters) have no CRS at 2:
+    KeyError, no recursion."""
     tev, rtk = ctx["port"]["ev"], ctx["port"]["rtk"]
     ct = _to_port(ctx["cts"][0])
     with pytest.raises(KeyError, match=r"steps \[2\]"):
