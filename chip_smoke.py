@@ -115,7 +115,22 @@ Phases, one line each, then two JSON lines:
               bench.py::oracle_cross_check): both errors within the bound
               and within 6 bits of each other, with its seconds; both
               examples' main() on the card; the phase's NTT launches,
-              which must be more than 0, on a line of their own.
+              which must be more than 0, on a line of their own;
+  9. parallel the parallel tier: 4 ranks spawned on the one card
+              (parallel/_ranks.py, gloo: the card's NCCL refuses two ranks
+              on one device, and ranks sharing a card cannot time their
+              exchanges), each run bit for bit against the
+              single-device result on the card: the coefficient-sharded
+              forward and inverse NTT of 8 x 32 x 2^15 at C = 2 and 4, the
+              PN15QP880 4-party coefficient-sharded mult at C = 2 (which
+              also decrypts within phase 4's bound, through the native
+              CRT), the party-sharded mult and rotate_new(1) counterpart
+              over 4 and 2 ranks; every rank's NTT launch counters grow
+              in every run; the chunk-local kernels (8 x 32 x 2^14 and
+              2^13, rank 0's tables) against their plain versions, with
+              their times and bounds; the PN15 decodes' host ms, python
+              CRT against the native one; the transport, each rank's peak
+              GiB and the phase's seconds on one line.
 Then {"kernels": [...]} (launches summed over phases 4-6, as before phase
 7 existed, so phase 7's captured launches are not in them; ntt_variant's
 from phase 3b's probe run: the wrapper's launches, those captured into
@@ -144,14 +159,16 @@ import types
 import numpy as np
 import torch
 
-from mkhe_tpu_torch import (config, fuse, mkbfv, mkckks, mkrlwe,
+from mkhe_tpu_torch import (config, fuse, mkbfv, mkckks, mkrlwe, native,
                             ntt_probe, profile_cnn, profile_ntt)
 from mkhe_tpu_torch.examples import two_party_bfv, two_party_ckks
+from mkhe_tpu_torch.mkrlwe import keyswitch as ksw
 from mkhe_tpu_torch.models import cnn
 from mkhe_tpu_torch.ops import ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
 from mkhe_tpu_torch.profile_ntt import cuda_ms, graph_ms
-from mkhe_tpu_torch.utils import oracle, serialize
+from mkhe_tpu_torch.parallel import _ranks, dist_ntt
+from mkhe_tpu_torch.utils import crt, oracle, serialize
 
 BATCH = 8
 SEED = 2024
@@ -1127,6 +1144,217 @@ def phase_api(params, params_bfv, params_cnn) -> dict:
     return launches
 
 
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host ms of reps calls of fn()."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _python_decode_scale(poly: np.ndarray, moduli, t: int) -> np.ndarray:
+    """round(t * c / Q) mod t with python ints (utils.crt): the BFV decode
+    before the native CRT, for its time beside the native one."""
+    Q = math.prod(int(q) for q in moduli)
+    return np.array([(t * int(v) + Q // 2) // Q % t
+                     for v in crt.crt_reconstruct(poly, moduli)], np.int64)
+
+
+def phase_parallel(params, params_bfv) -> None:
+    """The parallel tier: ranks spawned with torch.multiprocessing on the
+    one card, over gloo (parallel/_ranks.py), each run bit for bit against
+    the single-device result on the card; the chunk-local NTT kernels
+    against their plain versions, timed beside their bounds; the native
+    CRT decode against the python one."""
+    phase_t0 = time.perf_counter()
+    rp = params.rlwe
+    ring = rp.ring_qp
+    users = [f"user{i}" for i in range(4)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 90)
+
+    # -- the chunk-local kernels: rank 0's tables at C = 2 and 4 ----------
+    local = {}
+    for C in (2, 4):
+        t = dist_ntt._rank_tables(ring.moduli, ring.logn, C, 0,
+                                  ring.q.device)
+        x = _rand(gen, (BATCH, ring.nlimbs, ring.n // C), ring.q[:, None])
+        fwd = (ring.q, ring.bar, t["fwd_loc"], t["fwd_loc_sh"])
+        inv = (ring.q, ring.bar, t["inv_loc"], t["inv_loc_sh"], t["one"],
+               t["one_sh"])
+        for name, kern, plain, args, pack, reads in (
+                ("ntt_fwd", ntt_cuda.ntt, ntt_cuda.ntt_plain, fwd,
+                 t["fwd_pack"], (ring.q, ring.bar, t["fwd_pack"])),
+                ("ntt_inv", ntt_cuda.intt, ntt_cuda.intt_plain, inv,
+                 t["inv_pack"], (ring.q, ring.bar, t["one"], t["one_sh"],
+                                 t["inv_pack"]))):
+            got = kern(x, *args, pack)
+            want = plain(x, *args)
+            if not torch.equal(got, want):
+                raise AssertionError(f"chunk-local {name} at C = {C} "
+                                     f"differs from its plain version")
+            local[f"{name} C={C}"] = dict(
+                ms=cuda_ms(lambda: kern(x, *args, pack), 5, 1),
+                ms_mean10=cuda_ms(lambda: kern(x, *args, pack), 5),
+                plain_ms=cuda_ms(lambda: plain(x, *args), 3, 1),
+                bound_ms=profile_ntt.kernel_bound(name, x, reads)[0])
+
+    # -- the requests and their single-device results on the card ---------
+    kgen = mkrlwe.KeyGenerator(rp, seed=SEED + 91)
+    sks, rlk, rtk, pks = (mkrlwe.SecretKeySet(),
+                          mkrlwe.RelinearizationKeySet(),
+                          mkrlwe.RotationKeySet(), {})
+    for uid in users:
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        sks.add(sk)
+        rlk.add(kgen.gen_relinearization_key(sk, kgen.gen_secret_key(uid)))
+        rtk.add(kgen.gen_rotation_key(1, sk))
+    enc = mkckks.Encryptor(params, seed=SEED + 92)
+    rng = np.random.default_rng(SEED + 93)
+    msgs = [rng.uniform(0.025, 0.25, params.slots)
+            + 1j * rng.uniform(0.025, 0.25, params.slots) for _ in users]
+    cts = [enc.encrypt_msg(mkckks.Message(value=m), pks[u])
+           for m, u in zip(msgs, users)]
+    ev = mkckks.Evaluator(params)
+    ct0 = ct1 = cts[0]
+    for c in cts[1:]:
+        ct0, ct1 = ev.add_new(ct0, c), ev.sub_new(ct1, c)
+    ids, level = ct0.ids, ct0.level
+    stacked = rlk.stacked(ids)
+    rtk1 = rtk.stacked(ids, 1)
+    x = _rand(gen, (BATCH, ring.nlimbs, ring.n), ring.q[:, None])
+    want = {"ntt": ring.ntt(x).cpu(), "intt": ring.intt(ring.ntt(x)).cpu(),
+            "mul": ksw.mul_and_relin(rp, ct0.ct, ct1.ct, stacked,
+                                     level).data.cpu(),
+            "rot": ev.rotate_new(ct0, 1, rtk).ct.data.cpu()}
+    host = lambda a: a.cpu()
+    state = dict(logn=rp.logn, q=rp.q_moduli, p=rp.p_moduli, gamma=rp.gamma,
+                 sigma=rp.sigma, crs={i: host(rp.crs[i]) for i in (-1, 1)})
+    cts_host = [(c.ids, host(c.ct.data)) for c in (ct0, ct1)]
+    keys_host = tuple(host(a) for a in stacked)
+    ntt_in = dict(moduli=ring.moduli, logn=ring.logn, limb_axis=False)
+    tasks = [  # (what, task); C = 2 runs on a 2 x 2 mesh, each row alone
+        ("ntt C=2", ("ntt", dict(ntt_in, x=host(x), rns=2, coeff=2,
+                                 inverse=False))),
+        ("intt C=2", ("ntt", dict(ntt_in, x=want["ntt"], rns=2, coeff=2,
+                                  inverse=True))),
+        ("ntt C=4", ("ntt", dict(ntt_in, x=host(x), rns=1, coeff=4,
+                                 inverse=False))),
+        ("intt C=4", ("ntt", dict(ntt_in, x=want["ntt"], rns=1, coeff=4,
+                                  inverse=True))),
+        ("coeff mul C=2", ("coeff_mul", dict(
+            params=state, ct0=cts_host[0], ct1=cts_host[1], rlk=keys_host,
+            level=level, rns=2, coeff=2))),
+    ] + [(f"party mul /{k}", ("party_mul", dict(
+        params=state, ct0=cts_host[0], ct1=cts_host[1], rlk=keys_host,
+        h0=None, h1=None, parties=k))) for k in (4, 2)] \
+      + [(f"party rotate(1) /{k}", ("party_rot", dict(
+          params=state, ct=cts_host[0], rot=1, rtk=host(rtk1), h=None,
+          parties=k))) for k in (4, 2)]
+    del stacked, rtk1, rlk, rtk
+    torch.cuda.empty_cache()
+    ranks_t0 = time.perf_counter()
+    outs = _ranks.run([t for _, t in tasks], 4, backend="gloo",
+                      device="cuda", timeout=600)
+    ranks_s = time.perf_counter() - ranks_t0
+
+    # -- every run against the single-device result -----------------------
+    def whole(i, coeff):
+        """The rows of task i's blocks, each concatenated along N."""
+        res = [o["results"][i] for o in outs]
+        res = [r[1] if isinstance(r, tuple) else r for r in res]
+        return [torch.cat(res[r:r + coeff], -1) for r in range(0, 4, coeff)]
+
+    for i, (what, (kind, task)) in enumerate(tasks):
+        if kind in ("ntt", "coeff_mul"):
+            key = ("intt" if task.get("inverse") else "ntt") \
+                if kind == "ntt" else "mul"
+            got = whole(i, task["coeff"])
+        else:
+            key = "mul" if kind == "party_mul" else "rot"
+            got = [o["results"][i][1] for o in outs]
+        if not all(torch.equal(g, want[key]) for g in got):
+            raise AssertionError(f"phase 9 {what}: not bit-identical to the "
+                                 f"single-device result")
+        wants = {"ntt": ("ntt_inv" if task.get("inverse") else "ntt_fwd",),
+                 "coeff_mul": ("ntt_fwd", "ntt_inv"),
+                 "party_mul": ("ntt_fwd", "ntt_inv"),
+                 "party_rot": ("ntt_inv",)}[kind]
+        for o in outs:
+            if min(o["launches"][i][k] for k in wants) < 1:
+                raise AssertionError(f"phase 9 {what}: a rank launched no "
+                                     f"{wants}: {o['launches'][i]}")
+    if any(o["foreign_modules"] for o in outs):
+        raise AssertionError("a rank loaded JAX or the JAX package")
+
+    # the sharded product decrypts (scale^2, the native CRT at 28 limbs)
+    prod = mkckks.Ciphertext(
+        ct=mkrlwe.Ciphertext(ids=ids, data=whole(4, 2)[0].cuda()),
+        scale=ct0.scale * ct1.scale)
+    pt = mkrlwe.Decryptor(rp).decrypt(prod.ct, sks).cpu().numpy().astype(
+        np.uint32)
+    moduli = rp.q_moduli[:level + 1]
+    got = mkckks.encoder.decode(pt, prod.scale, moduli, params.logn,
+                                logslots=params.logslots)
+    want_m = sum(msgs) * (msgs[0] - sum(msgs[1:]))
+    bound = -math.log2(params.scale) + params.logslots + 12
+    err = math.log2(max(float(np.max(np.abs(got - want_m))), 1e-300))
+    if not (np.all(np.isfinite(got)) and err <= bound):
+        raise AssertionError(f"the coefficient-sharded product: log2 err "
+                             f"{err:.2f} (bound {bound:.2f})")
+    # within 1e-15 (tests/test_native_crt.py): the native CRT rounds
+    # through long double, python's float() of an int rounds once
+    python_centered = np.array([float(v) for v in crt.crt_center(pt, moduli)])
+    if not np.allclose(native.crt_center_double(pt, moduli),
+                       python_centered, rtol=1e-15, atol=0):
+        raise AssertionError("native and python CRT differ at PN15")
+
+    # -- the decode's host time, native against python ---------------------
+    tb = params_bfv.t
+    bmod = params_bfv.rlwe.q_moduli
+    bq = np.array(bmod, np.uint64)
+    bpoly = (np.random.default_rng(SEED + 94).integers(
+        0, 1 << 63, (len(bmod), params_bfv.n), np.uint64)
+        % bq[:, None]).astype(np.uint32)
+    if not np.array_equal(native.bfv_decode_scale(bpoly, bmod, tb),
+                          _python_decode_scale(bpoly, bmod, tb)):
+        raise AssertionError("native and python BFV decode differ at PN15")
+    decode_ms = {  # median of 3, after the calls above
+        "CKKS CRT python": _host_ms(lambda: [
+            float(v) for v in crt.crt_center(pt, moduli)]),
+        "CKKS CRT native": _host_ms(
+            lambda: native.crt_center_double(pt, moduli)),
+        "CKKS decode": _host_ms(lambda: mkckks.encoder.decode(
+            pt, prod.scale, moduli, params.logn, logslots=params.logslots)),
+        "BFV scale python": _host_ms(
+            lambda: _python_decode_scale(bpoly, bmod, tb)),
+        "BFV scale native": _host_ms(
+            lambda: native.bfv_decode_scale(bpoly, bmod, tb)),
+        "BFV decode": _host_ms(
+            lambda: mkbfv.encoder.decode(params_bfv, bpoly))}
+
+    r4 = lambda v: round(v, 4)
+    secs = [round(sum(o["seconds"]), 1) for o in outs]
+    print(f"[9 parallel] 4 ranks on one card, transport "
+          f"{outs[0]['transport']} (the exchanges share one card: not "
+          f"timed); bit-identical to the single-device results on the card:"
+          f" {', '.join(w for w, _ in tasks)} (8 x 32 x 2^15 NTTs; "
+          f"PN15QP880 4 parties); the C = 2 product decrypts, log2 err "
+          f"{err:.2f} (bound {bound:.2f}); rank peak GiB "
+          f"{[round(o['peak_gib'], 2) for o in outs]}; rank task s "
+          f"{secs}; launches rank 0 "
+          f"{[{k: v for k, v in l.items() if v} for l in outs[0]['launches']]}"
+          f"; chunk-local kernels, 8 x 32 x 2^15/C, rank 0's tables (ms "
+          f"single, mean of 10, plain, bound) "
+          f"{ {k: [r4(v[f]) for f in ('ms', 'ms_mean10', 'plain_ms', 'bound_ms')] for k, v in local.items()} }"
+          f"; decode host ms at {len(moduli)} limbs "
+          f"{ {k: round(v, 1) for k, v in decode_ms.items()} }; ranks "
+          f"{ranks_s:.1f} s, phase {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -1141,6 +1369,7 @@ def main() -> None:
         stats[name]["launches"] = sum(p[name] for p in phases)
     phase_fused(params, params_bfv, params_cnn)
     phase_api(params, params_bfv, params_cnn)
+    phase_parallel(params, params_bfv)
     stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

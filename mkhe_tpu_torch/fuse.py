@@ -28,7 +28,10 @@ shape, by calling fuse again. Outputs are clones of the graph's static outputs, 
 a second call does not overwrite the first call's result.
 
 With CUDA parameters fuse captures one graph, in the default capture
-error mode; nothing catches a failed capture or runs eagerly instead.
+error mode; nothing catches a failed capture or runs eagerly instead. The
+parallel tier's collectives cannot be captured (parallel/comm.py raises
+inside a capture), so fuse raises on a pipeline that reaches one rather
+than record a broken graph: the sharded paths run eagerly.
 With CPU parameters (asked for explicitly, as the tests do) fn runs the
 pipeline eagerly against the recorded tables.
 

@@ -8,9 +8,9 @@ transforms mod t run on ring_t, on the params' device.
 
 Encode: slots -> poly m mod t -> round(Q*m/t) mod each q_j, using q_j | Q:
 round(Q*m/t) = (h - s) * t^-1 (mod q_j), h = t >> 1, s = (Q*m + h) mod t.
-Decode: exact CRT with python ints -> round(t*c/Q) mod t -> forward NTT
-mod t -> slots, centered. (The JAX package may take a C++ copy of the
-same exact decode, mkhe_tpu/native; the port does not import it.)
+Decode: round(t*c/Q) mod t by the native C++ exact CRT (mkhe_tpu_torch/
+native, as mkhe_tpu/mkbfv/encoder.py:84-86) -> forward NTT mod t -> slots,
+centered.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from .. import native
 from ..ops.ring import _brv_vec
 from .params import Parameters
 
@@ -71,15 +72,9 @@ def decode(params: Parameters, poly) -> np.ndarray:
     values (N,), centered, exact."""
     t = params.t
     poly = (poly.cpu().numpy() if isinstance(poly, torch.Tensor)
-            else np.asarray(poly)).astype(np.int64)
+            else np.asarray(poly))
     moduli = params.rlwe.q_moduli[:poly.shape[0]]
-    Q = math.prod(moduli)
-    acc = 0
-    for i, qi in enumerate(moduli):
-        qhat = Q // qi
-        acc = acc + poly[i].astype(object) * (qhat * pow(qhat % qi, -1, qi))
-    m = np.array([(t * (int(c) % Q) + Q // 2) // Q % t for c in acc],
-                 np.int64)
+    m = native.bfv_decode_scale(poly, moduli, t).astype(np.int64)
     slots = params.ring_t.ntt(torch.from_numpy(m[None]).to(params.device))
     out = slots[0].cpu().numpy()[_slot_order(params.logn)]
     return np.where(out > t // 2, out - t, out)

@@ -2,10 +2,9 @@
 
 A copy of mkhe_tpu/mkckks/encoder.py (whose package imports JAX); it
 works on numpy uint32 (L, N) arrays, as there. The exact CRT of the decode
-boundary is done here with python ints (the JAX package also has a C++
-version of it, mkhe_tpu/native, which the port does not import); decoding
-takes it only at the last two levels or when the fast 2-limb CRT fails its
-self-check.
+boundary is the native C++ decode (mkhe_tpu_torch/native, a copy of the
+JAX package's); decoding takes it only at the last two levels or when the
+fast 2-limb CRT fails its self-check.
 
 Equivalent of lattigo's ckks.Encoder used by the reference at
 mkckks/encryptor.go:43 / decryptor.go:40. Slot j (j = 0..N/2-1) holds the
@@ -22,29 +21,23 @@ gather on top.
 Decode reconstructs centered coefficients from the first two RNS limbs
 only: decrypted CKKS values have magnitude ~ scale * |message| << q0*q1
 (the first prime pair is the reference's ~60-bit q0), making the 2-limb CRT
-exact; a python-int full CRT fallback handles larger values.
+exact; the native full CRT handles larger values.
 """
 
 from __future__ import annotations
 
 import functools
 
-import math
-
 import numpy as np
+
+from .. import native
 
 
 def _center_float(poly: np.ndarray, moduli) -> np.ndarray:
     """Exact CRT reconstruction of uint32 (L, N) residues -> centered
-    values in (-Q/2, Q/2] as float64 (N,), with python ints."""
-    Q = math.prod(int(q) for q in moduli)
-    acc = np.zeros(poly.shape[-1], dtype=object)
-    for i, qi in enumerate(moduli):
-        qhat = Q // int(qi)
-        c = (qhat * pow(qhat % int(qi), -1, int(qi))) % Q
-        acc = (acc + poly[i].astype(object) * c) % Q
-    acc = np.where(acc > Q // 2, acc - Q, acc)
-    return np.array([float(v) for v in acc], np.float64)
+    values in (-Q/2, Q/2] as float64 (N,), by the native C++ decode (the
+    JAX package's, mkhe_tpu/mkckks/encoder.py:31-38)."""
+    return native.crt_center_double(poly, tuple(moduli))
 
 
 def _to_rns(values, moduli) -> np.ndarray:

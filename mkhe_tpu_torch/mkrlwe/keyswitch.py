@@ -188,17 +188,17 @@ def _tensor_ntt(ring_q: Ring, nt0, nt1, ids0, ids1, ids) -> torch.Tensor:
 
 
 def _relin_keys(params: Parameters, rlk_stacked, ids, ids0, ids1,
-                level: int):
-    """(d, b, v) keys of the operands' parties and the CRS u, at the
-    level; the row indices 1 + sel0 and 1 + sel1 of ids0 and ids1 in the
-    output."""
+                level: int, u_key=None):
+    """(d, b, v) keys of the operands' parties and the CRS u (u_key where
+    given, else the params' CRS at -1), at the level; the row indices
+    1 + sel0 and 1 + sel1 of ids0 and ids1 in the output."""
     b_all, d_all, v_all = rlk_stacked  # each (k_union, beta, Lqp, N)
     sel0 = [ids.index(i) for i in ids0]
     sel1 = [ids.index(i) for i in ids1]
     keys = (slice_swk(params, _rows(d_all, sel0), level),
             slice_swk(params, _rows(b_all, sel1), level),
             slice_swk(params, _rows(v_all, sel0), level),
-            params.crs_at(-1, level))
+            params.crs_at(-1, level) if u_key is None else u_key)
     dev = d_all.device
     return (keys, index(tuple(1 + s for s in sel0), dev),
             index(tuple(1 + s for s in sel1), dev))
@@ -210,13 +210,16 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
                   level: int,
                   h0: Optional[HoistedCiphertext] = None,
                   h1: Optional[HoistedCiphertext] = None,
-                  square: bool = False) -> Ciphertext:
+                  square: bool = False,
+                  u_key: Optional[torch.Tensor] = None) -> Ciphertext:
     """The KKLSS multi-key multiplication with relinearization
     (keyswitch.go:122-230 / keyswitch_hoisted.go:44-179). The data may
     carry a batch axis behind the party axis, (k+1, B, L, N): every step
     is polynomial-wise or contracts the party axis, so each of the B
     results is bit-identical to its own call, and each NTT launch covers
-    B times the polynomials.
+    B times the polynomials. u_key, the CRS u at the level, replaces
+    params.crs_at(-1, level) where given (a sharded caller passes its
+    rank's chunk, parallel/coeff_mul.py).
 
       x = MForm(sum_i d_i . Dec(ct0_i)),  y = MForm(sum_i b_i . Dec(ct1_i))
       out_0 = ct0_0 * ct1_0
@@ -248,7 +251,7 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
             dec1 = _digits(params, h1, d1, level)
 
     (d_keys, b_keys, v_keys, u_key), i0, i1 = _relin_keys(
-        params, rlk_stacked, ids, ids0, ids1, level)
+        params, rlk_stacked, ids, ids0, ids1, level, u_key)
     x = _aggregate_keys(params, dec0, d_keys, level)
     y = _aggregate_keys(params, dec1, b_keys, level)
 
@@ -277,8 +280,8 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
     return Ciphertext(ids=ids, data=out_arr)
 
 
-def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int
-                      ) -> Ciphertext:
+def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int,
+                      u_key: Optional[torch.Tensor] = None) -> Ciphertext:
     """sum_i MulAndRelin(a_i, b_i) with the relinearization tail deferred
     across the whole inner product (lazy relinearization,
     mkhe_tpu/mkrlwe/keyswitch.py:317-407).
@@ -289,7 +292,8 @@ def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int
     iNTT + ModDown for z1, and one ModDown, re-decomposition and v/u
     products for t, instead of one of each per pair. It decrypts to
     sum_i a_i b_i with one rounding instead of one per pair: it is not
-    bit-identical to a sum of mul_and_relin results.
+    bit-identical to a sum of mul_and_relin results. u_key as in
+    mul_and_relin.
     """
     ids0, ids1 = pairs[0][0].ids, pairs[0][1].ids
     ids = union_ids(ids0, ids1)
@@ -299,7 +303,7 @@ def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int
     ring_q = params.ring_q_at(level)
     ring_qp = params.ring_qp_at(level)
     (d_keys, b_keys, v_keys, u_key), i0, i1 = _relin_keys(
-        params, rlk_stacked, ids, ids0, ids1, level)
+        params, rlk_stacked, ids, ids0, ids1, level, u_key)
 
     out_ntt = z1_qp = t_qp = None   # NTT-domain sums over the pairs
     for ct0, ct1, h0, h1 in pairs:

@@ -53,8 +53,11 @@ class Parameters:
     ring_qp: Ring
     crs: Dict[int, torch.Tensor]   # idx -> (beta, Lq+Lp, N) NTT + Mont
     pmodq_mont: torch.Tensor       # (Lq,) P mod q_j, Montgomery form
-    _rings: dict = dataclasses.field(default_factory=dict, compare=False,
-                                     repr=False)
+    # level-sliced rings and index tensors, memoized; init=False, so that
+    # dataclasses.replace (add_crs, with_dist) starts from an empty memo
+    # rather than hand the new object the old one's rings
+    _rings: dict = dataclasses.field(default_factory=dict, init=False,
+                                     compare=False, repr=False)
 
     # -- derived sizes ------------------------------------------------------
 
@@ -113,6 +116,16 @@ class Parameters:
                 torch.arange(self.qcount, self.qcount + self.pcount)]
             ).to(self.device)
         return self._rings[key]
+
+    def with_dist(self, group, n_shards: int) -> "Parameters":
+        """These parameters with all three rings coefficient-sharded over
+        `group` (Ring.with_dist), so that every NTT inside the evaluator's
+        functions runs the sharded transform on local chunks; the
+        level-sliced rings made from them carry the same setting."""
+        ring_q = self.ring_q.with_dist(group, n_shards)
+        ring_p = self.ring_p.with_dist(group, n_shards)
+        return dataclasses.replace(self, ring_q=ring_q, ring_p=ring_p,
+                                   ring_qp=ring_q.concat(ring_p))
 
     def crs_at(self, idx: int, level: int) -> torch.Tensor:
         """CRS for index idx, sliced to (beta(level), level+1+Lp, N)."""

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -237,6 +237,8 @@ class Ring:
     ninv_sh: torch.Tensor
     psi_pack: torch.Tensor
     ipsi_pack: torch.Tensor
+    # with_dist's setting (a parallel.dist_ntt.Dist), None for a local ring
+    dist: Optional[Any] = None
 
     # -- construction -------------------------------------------------------
 
@@ -253,19 +255,42 @@ class Ring:
     def nlimbs(self) -> int:
         return len(self.moduli)
 
+    def with_dist(self, group, n_shards: int = 0) -> "Ring":
+        """Copy of this ring whose ntt / intt take a local chunk (..., L,
+        N / n_shards) of a coefficient axis split over the process group
+        `group` of n_shards ranks and run the sharded transform
+        (parallel/dist_ntt.py); every rank of the group calls them
+        together. The ring keeps the group, its size, this rank's index in
+        it and the rank's twiddle tables. with_dist(None) returns the
+        local ring."""
+        if group is None:
+            return dataclasses.replace(self, dist=None)
+        from ..parallel import dist_ntt
+        return dataclasses.replace(
+            self, dist=dist_ntt.Dist.create(self, group, n_shards))
+
     def take(self, lo: int, hi: int) -> "Ring":
-        """Sub-ring over moduli[lo:hi] (views of the tables)."""
+        """Sub-ring over moduli[lo:hi] (views of the tables, the dist
+        setting's too)."""
         return Ring(moduli=self.moduli[lo:hi], logn=self.logn,
                     device=self.device,
+                    dist=None if self.dist is None
+                    else self.dist.take(lo, hi),
                     **{k: getattr(self, k)[lo:hi] for k in TABLE_FIELDS})
 
     def concat(self, other: "Ring") -> "Ring":
         """Ring over moduli ++ other.moduli (the QP ring: every op is
-        limb-wise, so Q and P limbs ride through one batched call)."""
+        limb-wise, so Q and P limbs ride through one batched call). Both
+        rings must have the same dist setting."""
         if self.logn != other.logn or self.device != other.device:
             raise ValueError("rings differ in degree or device")
+        if (self.dist is None) != (other.dist is None):
+            raise ValueError("one ring is coefficient-sharded, the other "
+                             "not: give both the same with_dist")
         return Ring(moduli=self.moduli + other.moduli, logn=self.logn,
                     device=self.device,
+                    dist=None if self.dist is None
+                    else self.dist.concat(other.dist),
                     **{k: torch.cat([getattr(self, k), getattr(other, k)])
                        for k in TABLE_FIELDS})
 
@@ -317,8 +342,13 @@ class Ring:
         """Forward negacyclic NTT over (..., L, N): standard coefficient
         order in, bit-reversed evaluation order out, canonical. Accepts
         any u32 input (it is reduced first), so it also covers the JAX
-        package's ntt(reduce_input=True)."""
+        package's ntt(reduce_input=True). A ring with a dist setting takes
+        the local chunk (..., L, N / C) and runs the sharded transform
+        (before the split's switch, as in the JAX package)."""
         a = a.contiguous()
+        if self.dist is not None:
+            from ..parallel import dist_ntt
+            return dist_ntt.ntt_in_shard(self, a, inverse=False)
         if self._split():
             return ntt_cuda.ntt_split_fwd(a, self.q, self.r_inv,
                                           self.split_tables())
@@ -328,8 +358,12 @@ class Ring:
     def intt(self, a):
         """Inverse negacyclic NTT: bit-reversed in, standard order out,
         canonical. Accepts any u32 input, which covers the lazy (< 8q)
-        inputs of the JAX package's intt(reduce_input=True)."""
+        inputs of the JAX package's intt(reduce_input=True). Sharded
+        like ntt for a ring with a dist setting."""
         a = a.contiguous()
+        if self.dist is not None:
+            from ..parallel import dist_ntt
+            return dist_ntt.ntt_in_shard(self, a, inverse=True)
         if self._split():
             return ntt_cuda.ntt_split_inv(a, self.q, self.bar, self.r_inv,
                                           self.split_tables())

@@ -14,7 +14,6 @@ passes without the oracle.
 from __future__ import annotations
 
 import functools
-import hashlib
 import json
 import math
 import os
@@ -25,6 +24,7 @@ from typing import Tuple
 
 import numpy as np
 
+from ..native import gxx_build
 from ..ops.ntt_cuda import BUILD_DIR
 from . import crt
 
@@ -35,24 +35,9 @@ EXE = BUILD_DIR / "ref_oracle"
 @functools.lru_cache(maxsize=1)
 def oracle_binary() -> str:
     """Build SRC with g++ -O3 -std=c++17 into build/mkhe_tpu_torch/ when
-    the binary is missing or was built from another source: the source's
-    SHA-256 is stored beside it (a checkout gives source and binary the
-    same mtimes). Raises if g++ fails or is absent."""
-    src_hash = hashlib.sha256(SRC.read_bytes()).hexdigest()
-    hash_path = EXE.with_name(EXE.name + ".sha256")
-    have = hash_path.read_text().strip() if hash_path.exists() else ""
-    if not EXE.exists() or have != src_hash:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = EXE.with_name(f"{EXE.name}.build{os.getpid()}")
-        res = subprocess.run(["g++", "-O3", "-std=c++17", "-o", str(tmp),
-                              str(SRC)], capture_output=True, text=True,
-                             timeout=300)
-        if res.returncode:
-            raise RuntimeError(f"g++ could not build the u64 oracle:\n"
-                               f"{res.stderr}")
-        os.replace(tmp, EXE)
-        hash_path.write_text(src_hash)
-    return str(EXE)
+    the binary is missing or was built from another source
+    (native.gxx_build). Raises if g++ fails or is absent."""
+    return gxx_build(SRC, EXE, [])
 
 
 def run_oracle(config: str, seed: int, m0_coeffs: np.ndarray,

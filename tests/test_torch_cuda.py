@@ -758,3 +758,147 @@ def test_examples_on_card(gen, capsys):
     two_party_bfv.main()
     out = capsys.readouterr().out
     assert "(cuda:0)" in out and "rotation EXACT" in out
+
+
+# ----------------------------------------------------------------------------
+# The parallel tier on the card
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_chunk_local_kernels_match_plain(gen, n_shards):
+    """A dist ring's chunk-local stages: the full kernels at logN 15 -
+    log2 C with every rank's tables (dist_ntt._rank_tables) on PN15QP880's
+    QP moduli (32 limbs; chunks of 2^14 and 2^13), against ntt_plain /
+    intt_plain with the same tables; the launch counters grow."""
+    from mkhe_tpu_torch.mkckks.params import _PRESETS, select_moduli
+    from mkhe_tpu_torch.parallel import dist_ntt
+
+    pre = _PRESETS["PN15QP880"]
+    q, p = select_moduli(15, pre["q0_bits"], pre["level_bits"],
+                         pre["levels"], p_bits=pre["p_bits"],
+                         p_count=pre["p_count"])
+    ring = Ring.create(q + p, 15, "cuda")
+    assert ring.nlimbs == 32
+    c = ring.n // n_shards
+    for d in range(n_shards):
+        t = dist_ntt._rank_tables(ring.moduli, 15, n_shards, d,
+                                  ring.q.device)
+        x = _rand(gen, (2, ring.nlimbs, c), 1 << 32)
+        fwd = (ring.q, ring.bar, t["fwd_loc"], t["fwd_loc_sh"])
+        inv = (ring.q, ring.bar, t["inv_loc"], t["inv_loc_sh"], t["one"],
+               t["one_sh"])
+        ntt_cuda.reset_counters()
+        assert torch.equal(ntt_cuda.ntt(x, *fwd, t["fwd_pack"]),
+                           ntt_cuda.ntt_plain(x, *fwd))
+        lazy = _rand(gen, (2, ring.nlimbs, c), 8 * ring.q[:, None])
+        assert torch.equal(ntt_cuda.intt(lazy, *inv, t["inv_pack"]),
+                           ntt_cuda.intt_plain(lazy, *inv))
+        assert (ntt_cuda.fwd_launches, ntt_cuda.inv_launches) == (1, 1)
+    torch.cuda.synchronize()
+
+
+def test_sharded_ntt_two_ranks_on_card(gen):
+    """One spawn of 2 ranks on the card over gloo: the coefficient-sharded
+    forward and inverse NTT equal Ring.ntt / intt on the card, and every
+    rank launched the chunk-local kernels."""
+    from mkhe_tpu_torch.parallel import _ranks
+
+    ring = _ring(12, limbs=4)
+    x = _rand(gen, (3, ring.nlimbs, ring.n), ring.q[:, None])
+    nt = ring.ntt(x)
+    common = dict(moduli=ring.moduli, logn=12, rns=1, coeff=2,
+                  limb_axis=False)
+    outs = _ranks.run([("ntt", dict(common, x=x.cpu(), inverse=False)),
+                       ("ntt", dict(common, x=nt.cpu(), inverse=True))],
+                      2, backend="gloo", device="cuda", timeout=300)
+    for i, want in enumerate((nt, x)):
+        got = torch.cat([o["results"][i] for o in outs], -1)
+        assert torch.equal(got, want.cpu())
+    for o in outs:
+        assert o["transport"] == "gloo" and o["foreign_modules"] == []
+        assert o["launches"][0]["ntt_fwd"] == 1
+        assert o["launches"][1]["ntt_inv"] == 1
+
+
+def test_collective_refuses_capture(gen, tmp_path):
+    """A collective inside a CUDA graph capture (fuse's) raises rather than
+    record a broken graph."""
+    import torch.distributed as dist
+    from mkhe_tpu_torch.parallel import comm
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        x = torch.ones(4, dtype=torch.int64, device="cuda")
+        assert torch.equal(comm.all_reduce_sum(x, None), x)
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="cannot be captured"):
+            with torch.cuda.graph(graph):
+                comm.all_reduce_sum(x, None)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_paths_over_nccl(gen):
+    """On a machine with 2 or more cards, one rank a card over NCCL (the
+    device-tensor route of parallel/comm.py): the coefficient-sharded NTT
+    and mult and the party-sharded mult and rotation equal the
+    single-device results on cuda:0."""
+    import torch.distributed as dist
+    from mkhe_tpu_torch import mkckks, mkrlwe
+    from mkhe_tpu_torch.mkrlwe import keyswitch as ksw
+    from mkhe_tpu_torch.parallel import _ranks
+
+    world = min(4, torch.cuda.device_count())
+    if world < 2 or not dist.is_nccl_available():
+        pytest.skip("needs 2 or more CUDA devices and NCCL")
+    params = mkckks.new_parameters(12, 11, q0_bits=28.9, level_bits=20.0,
+                                   levels=3, scale=2.0 ** 40, p_bits=28.4,
+                                   device="cuda")
+    rp = params.rlwe
+    users = [f"u{i}" for i in range(world)]
+    kgen = mkrlwe.KeyGenerator(rp, seed=31)
+    rlk, rtk, pks = mkrlwe.RelinearizationKeySet(), mkrlwe.RotationKeySet(), {}
+    for uid in users:
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        rlk.add(kgen.gen_relinearization_key(sk, kgen.gen_secret_key(uid)))
+        rtk.add(kgen.gen_rotation_key(1, sk))
+    enc, ev = mkckks.Encryptor(params, seed=32), mkckks.Evaluator(params)
+    cts = [enc.encrypt_msg(mkckks.Message(value=torch.rand(
+        params.slots, generator=torch.Generator().manual_seed(i)).numpy()),
+        pks[u]) for i, u in enumerate(users)]
+    ct0 = ct1 = cts[0]
+    for c in cts[1:]:
+        ct0, ct1 = ev.add_new(ct0, c), ev.sub_new(ct1, c)
+    stacked = rlk.stacked(ct0.ids)
+    rtk1 = rtk.stacked(ct0.ids, 1)
+    ring = rp.ring_qp
+    x = _rand(gen, (2, ring.nlimbs, ring.n), ring.q[:, None])
+    want = [ring.ntt(x),
+            ksw.mul_and_relin(rp, ct0.ct, ct1.ct, stacked, ct0.level).data,
+            ksw.mul_and_relin(rp, ct0.ct, ct1.ct, stacked, ct0.level).data,
+            ksw.rotate(rp, ct0.ct, 1, rtk1).data]
+    state = dict(logn=rp.logn, q=rp.q_moduli, p=rp.p_moduli, gamma=rp.gamma,
+                 sigma=rp.sigma, crs={i: rp.crs[i].cpu() for i in (-1, 1)})
+    cts_host = [(c.ids, c.ct.data.cpu()) for c in (ct0, ct1)]
+    keys_host = tuple(a.cpu() for a in stacked)
+    outs = _ranks.run([
+        ("ntt", dict(moduli=ring.moduli, logn=rp.logn, x=x.cpu(), rns=1,
+                     coeff=world, inverse=False, limb_axis=False)),
+        ("coeff_mul", dict(params=state, ct0=cts_host[0], ct1=cts_host[1],
+                           rlk=keys_host, level=ct0.level, rns=1,
+                           coeff=world)),
+        ("party_mul", dict(params=state, ct0=cts_host[0], ct1=cts_host[1],
+                           rlk=keys_host, h0=None, h1=None, parties=world)),
+        ("party_rot", dict(params=state, ct=cts_host[0], rot=1,
+                           rtk=rtk1.cpu(), h=None, parties=world))],
+        world, backend="nccl", device="cuda", timeout=300)
+    assert all(o["transport"] == "nccl" for o in outs)
+    got_ntt = torch.cat([o["results"][0] for o in outs], -1)
+    got_mul = torch.cat([o["results"][1][1] for o in outs], -1)
+    assert torch.equal(got_ntt, want[0].cpu())
+    assert torch.equal(got_mul, want[1].cpu())
+    for o in outs:
+        assert torch.equal(o["results"][2][1], want[2].cpu())
+        assert torch.equal(o["results"][3][1], want[3].cpu())
+        assert o["launches"][0]["ntt_fwd"] == 1

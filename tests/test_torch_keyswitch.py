@@ -156,3 +156,43 @@ def test_external_product_bit_identical(ctx):
     got = tksw.external_product(tp, convert.tensor(digits, "cpu"),
                                 tp.crs_at(-1, level), level)
     np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(want))
+
+
+@functools.partial(jax.jit, static_argnames=("level",))
+def _j_u_key_products(rp, c0, c1, rlk, level, u_key):
+    one = jksw.mul_and_relin(rp, c0, c1, rlk, level, u_key=u_key).data
+    two = jksw.mul_and_relin_sum(rp, [(c0, c1, None, None),
+                                      (c1, c0, None, None)], rlk, level,
+                                 u_key=u_key).data
+    return one, two
+
+
+@pytest.mark.parametrize("ctx", [1], indirect=True)
+def test_u_key_operand(ctx):
+    """u_key= replaces the CRS u in mul_and_relin and mul_and_relin_sum
+    (a sharded caller passes its chunk): given another CRS both equal the
+    JAX package's with the same u_key, and given the CRS at -1 they equal
+    the default, bit for bit."""
+    ct0, ct1 = _operands(ctx, "distinct", 2)
+    ct0, ct1 = ctx["ev"].drop_level(ct0, 1), ctx["ev"].drop_level(ct1, 1)
+    ids, level = ct0.ids, ct0.level
+    rp, tp = ctx["params"].rlwe, ctx["tparams"].rlwe
+    want_one, want_two = _j_u_key_products(
+        rp, ct0.ct, ct1.ct, ctx["rlk"].stacked(ids), level,
+        rp.crs_at(0, level))
+    t0 = convert.rlwe_ciphertext(ids, np.asarray(ct0.ct.data), "cpu")
+    t1 = convert.rlwe_ciphertext(ids, np.asarray(ct1.ct.data), "cpu")
+    keys = ctx["t_rlk"].stacked(ids)
+    pairs = [(t0, t1, None, None), (t1, t0, None, None)]
+    for u, one_w, two_w in ((tp.crs_at(0, level), np.asarray(want_one),
+                             np.asarray(want_two)),
+                            (tp.crs_at(-1, level), None, None)):
+        one = tksw.mul_and_relin(tp, t0, t1, keys, level, u_key=u)
+        two = tksw.mul_and_relin_sum(tp, pairs, keys, level, u_key=u)
+        if one_w is None:   # the default's CRS: the default's output
+            one_w = convert.to_numpy(
+                tksw.mul_and_relin(tp, t0, t1, keys, level).data)
+            two_w = convert.to_numpy(
+                tksw.mul_and_relin_sum(tp, pairs, keys, level).data)
+        np.testing.assert_array_equal(convert.to_numpy(one.data), one_w)
+        np.testing.assert_array_equal(convert.to_numpy(two.data), two_w)
