@@ -43,14 +43,14 @@ Phases, one line each, then two JSON lines:
               shares; then the full row at the probe's `cnn` (8 x 18 x
               2^14) and `digits` (4 x 14 x 32 x 2^15) shapes, each equal
               to Ring.ntt, with its CUDA-graph ms, bound and share;
-  4. mult     the CKKS main path: PN15QP880, 4 parties, keys from
-              torch.Generator on the card; three requests of fresh
+  4. mult     the CKKS main path: PN15QP880, 4 parties, keys from the
+              port's seeds (threefry) on the card; three requests of fresh
               encryptions -> Evaluator.mul_relin_new (mult + relin +
               rescale) -> decrypt, and one 2-party request; each decrypts
               within log2|err| <= -log2(scale) + logslots + 12; the NTT
               launch counters must grow during the phase;
   5. bfv      the MKBFV path with the split NTT on (config.ntt_mxu_tail):
-              PN15QP880, 4 parties, keys from torch.Generator on the card;
+              PN15QP880, 4 parties, keys from the port's seeds on the card;
               two 4-party requests ((user0 + user1) x (user2 + user3))
               and, between them, one 2-party request (user0 x user1) of
               fresh encryptions -> Evaluator.mul_relin_new -> decrypt,
@@ -64,7 +64,7 @@ Phases, one line each, then two JSON lines:
   6. cnn      the two-party encrypted MNIST CNN (models/cnn.py, REF
               layout) at PN14QP433_CNN: CRS and keys (key pairs,
               relinearization, rotation keys for REF.extra_rots and the
-              powers of two 1..4096, conjugation) from torch.Generator on
+              powers of two 1..4096, conjugation) from the port's seeds on
               the card; the model's weights encrypted once under
               modelOwner; three requests, each a fresh synthetic 28x28
               image encrypted under dataOwner -> the staged pipeline
@@ -131,6 +131,16 @@ Phases, one line each, then two JSON lines:
               their times and bounds; the PN15 decodes' host ms, python
               CRT against the native one; the transport, each rank's peak
               GiB and the phase's seconds on one line.
+ 10. seeds    the card against the JAX package from seeds alone: the three
+              parameter sets (CKKS and BFV PN15QP880, CKKS PN14QP433_CNN)
+              built afresh, one at a time, with their construction seconds
+              (profile_params.build); the sha256 of every default CRS's
+              u32 words in the JAX layout (convert.sha256_u32), and at CKKS
+              PN15QP880 of KeyGenerator(seed=1)'s "user0" sk, pk and
+              relinearization key and of Encryptor(seed=2)'s encryption of
+              profile_params.fixed_plaintext under that pk, each equal to
+              the digest the JAX package gives (tests/torch_seed_digests.json,
+              recomputed by tests/test_torch_prng.py).
 Then {"kernels": [...]} (launches summed over phases 4-6, as before phase
 7 existed, so phase 7's captured launches are not in them; ntt_variant's
 from phase 3b's probe run: the wrapper's launches, those captured into
@@ -159,8 +169,9 @@ import types
 import numpy as np
 import torch
 
-from mkhe_tpu_torch import (config, fuse, mkbfv, mkckks, mkrlwe, native,
-                            ntt_probe, profile_cnn, profile_ntt)
+from mkhe_tpu_torch import (config, convert, fuse, mkbfv, mkckks, mkrlwe,
+                            native, ntt_probe, profile_cnn, profile_ntt,
+                            profile_params)
 from mkhe_tpu_torch.examples import two_party_bfv, two_party_ckks
 from mkhe_tpu_torch.mkrlwe import keyswitch as ksw
 from mkhe_tpu_torch.models import cnn
@@ -175,6 +186,7 @@ SEED = 2024
 NTT_CU = "mkhe_tpu_torch/csrc/ntt.cu"
 SPLIT_CU = "mkhe_tpu_torch/csrc/ntt_split.cu"
 VARIANT_CU = "mkhe_tpu_torch/csrc/ntt_variant.cu"
+DIGESTS = "tests/torch_seed_digests.json"
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
     ("ntt_inv", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
@@ -1355,6 +1367,45 @@ def phase_parallel(params, params_bfv) -> None:
           flush=True)
 
 
+def phase_seeds() -> None:
+    """Each parameter set afresh, its CRS, and at CKKS PN15QP880 one
+    party's keys and one encryption, as digests against the JAX
+    package's."""
+    with open(DIGESTS) as f:
+        want = json.load(f)
+    got, secs = {}, {}
+    for scheme, name in profile_params.SETS:
+        label = f"{scheme}_{name}"
+        params, secs[label] = profile_params.build(scheme, name)
+        rp = params.rlwe
+        for idx, a in rp.crs.items():
+            got[f"{label}/crs/{idx}"] = convert.sha256_u32(a)
+        if label == "ckks_PN15QP880":
+            kgen = mkrlwe.KeyGenerator(rp, seed=1)
+            sk, pk = kgen.gen_key_pair("user0")
+            rlk = kgen.gen_relinearization_key(sk,
+                                               kgen.gen_secret_key("user0"))
+            got[f"{label}/sk"] = convert.sha256_u32(sk.data)
+            got[f"{label}/pk"] = convert.sha256_u32(pk.data)
+            for f in "bdv":
+                got[f"{label}/rlk/{f}"] = convert.sha256_u32(getattr(rlk, f))
+            pt = profile_params.fixed_plaintext(rp.q_moduli, rp.n, "cuda")
+            ct = mkrlwe.Encryptor(rp, seed=2).encrypt(pt, pk)
+            got[f"{label}/ct"] = convert.sha256_u32(ct.data)
+            del kgen, sk, pk, rlk, pt, ct
+        del params, rp
+        torch.cuda.empty_cache()
+    bad = sorted(k for k in set(want) | set(got) if got.get(k) != want.get(k))
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(want)} digests differ "
+                             f"from the JAX package's: {bad[:8]}")
+    print(f"[10 seeds] {len(got)} digests equal the JAX package's (CRS of "
+          f"CKKS and BFV PN15QP880 and CKKS PN14QP433_CNN, CKKS PN15QP880 "
+          f"KeyGenerator(seed=1) sk, pk, rlk b/d/v and Encryptor(seed=2) "
+          f"ct); construction s (fresh, synchronized) "
+          f"{ {k: round(v, 3) for k, v in secs.items()} }", flush=True)
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -1370,6 +1421,7 @@ def main() -> None:
     phase_fused(params, params_bfv, params_cnn)
     phase_api(params, params_bfv, params_cnn)
     phase_parallel(params, params_bfv)
+    phase_seeds()
     stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -8,6 +8,7 @@ imports JAX: the caller converts with np.asarray.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Mapping, Sequence, Tuple
 
 import numpy as np
@@ -107,6 +108,16 @@ def ckks_ciphertext(ids: Sequence[str], data, scale: float, device=None
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int64 tensor of u32 values -> numpy uint32 (the JAX layout)."""
     return t.cpu().numpy().astype(np.uint32)
+
+
+def sha256_u32(t: torch.Tensor) -> str:
+    """sha256 of an int64 tensor's u32 words, little-endian, in the JAX
+    layout: the digest of the JAX package's uint32 array of the same
+    values. The words are cut to 32 bits where the tensor lies, so a card
+    tensor crosses to the host at half its size."""
+    words = t.contiguous().to(torch.int32).cpu().numpy()
+    return hashlib.sha256(words.astype("<i4", copy=False).tobytes()
+                          ).hexdigest()
 
 
 def rotation_key_set(keys: Mapping[Tuple[str, int], np.ndarray],

@@ -13,7 +13,9 @@ where digit i of the BFV gadget carries the scalar
 with B_i the i-th alpha-limb block of Q (first half) or QMul (second half)
 (mkbfv/keygen.go:91-162). As in mkrlwe/keygen.py, the array work lives in
 cores that take the samples as tensors; KeyGenerator draws them from its
-torch.Generator in the JAX package's order.
+threefry key in the JAX package's order (b's 2*beta gaussians, then
+gen_bfv_switching_key(s), then gen_switching_key(r)), so that the same
+seed gives both packages the same keys.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@ ciphertexts (port of mkhe_tpu/mkrlwe/encryptor.py):
 
     ct = { "0": u*pk0 + e0 + m,   id: u*pk1 + e1 }
 
-with ternary u and gaussian e0, e1. As in the reference, the plaintext
-and the output may each be in the coefficient or the NTT domain
-(pt_ntt / ct_ntt; encryptor.go:55-118 branches on both IsNTT flags).
+with ternary u and gaussian e0, e1, drawn from threefry key(seed) as the
+JAX package draws them, so the same seed gives the same ciphertext. As in
+the reference, the plaintext and the output may each be in the
+coefficient or the NTT domain (pt_ntt / ct_ntt; encryptor.go:55-118
+branches on both IsNTT flags).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from ..ops import sampling
+from ..ops import sampling, threefry
 from .params import Parameters
 from .elements import Ciphertext
 from .keys import PublicKey
@@ -49,8 +51,7 @@ def _encrypt_core(rp: Parameters, pk_data, pt, u_signed, e0_signed,
 class Encryptor:
     def __init__(self, params: Parameters, seed: int = 2):
         self.params = params
-        self.gen = torch.Generator(device=params.device)
-        self.gen.manual_seed(seed)
+        self._keys = threefry.KeyChain(seed)
 
     def encrypt(self, plaintext: Optional[torch.Tensor], pk: PublicKey,
                 level: Optional[int] = None, pt_ntt: bool = False,
@@ -63,9 +64,12 @@ class Encryptor:
         if level is None:
             level = (plaintext.shape[-2] - 1 if plaintext is not None
                      else p.max_level)
-        u = sampling.ternary(self.gen, p.n, p.device)
-        e0 = sampling.gaussian(self.gen, p.n, p.device, sigma=p.sigma)
-        e1 = sampling.gaussian(self.gen, p.n, p.device, sigma=p.sigma)
+        # u, e0, e1, each under its own key, in the JAX package's order
+        u = sampling.ternary(self._keys.next(), p.n, p.device)
+        e0 = sampling.gaussian(self._keys.next(), p.n, p.device,
+                               sigma=p.sigma)
+        e1 = sampling.gaussian(self._keys.next(), p.n, p.device,
+                               sigma=p.sigma)
         data = _encrypt_core(p, pk.data, plaintext, u, e0, e1, level,
                              pt_ntt, ct_ntt)
         return Ciphertext(ids=(pk.id,), data=data)

@@ -10,17 +10,19 @@ With CRS a = crs[0] and u = crs[-1], all NTT + Montgomery:
   cjk:  swk(sigma_conj(s)) - a^(conj) s         (keygen.go:240-267)
 
 The array work lives in the "cores" below, which take the signed samples
-as tensors, so a test can feed this package and the JAX one the same
-samples. KeyGenerator draws the samples from a torch.Generator.
+as tensors. KeyGenerator draws the samples as the JAX package's does:
+from threefry key(seed), one split per sampler call, in the JAX package's
+order, so that the same seed gives both packages the same keys.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
-from ..ops import sampling
+from ..ops import sampling, threefry
 from ..ops.ring import galois_element_conj, galois_element_rot
 from .params import Parameters
 from .keys import (SecretKey, PublicKey, SwitchingKey, RelinearizationKey,
@@ -99,35 +101,32 @@ def _conjugation_key_core(rp: Parameters, sg_conj, s_mont) -> torch.Tensor:
 class KeyGenerator:
     def __init__(self, params: Parameters, seed: int = 1):
         self.params = params
-        self.gen = torch.Generator(device=params.device)
-        self.gen.manual_seed(seed)
+        self._keys = threefry.KeyChain(seed)
 
     def gen_secret_key(self, pid: str) -> SecretKey:
         p = self.params
-        s = sampling.ternary(self.gen, p.n, p.device)
+        s = sampling.ternary(self._keys.next(), p.n, p.device)
         return SecretKey(id=pid, data=_secret_key_core(p, s))
 
     def gen_secret_key_sparse(self, pid: str, hw: int) -> SecretKey:
         """Secret with exactly hw non-zero coefficients
         (GenSecretKeySparse, keygen.go:78-85)."""
         p = self.params
-        s = sampling.ternary_sparse(self.gen, p.n, hw, p.device)
+        s = sampling.ternary_sparse(self._keys.next(), p.n, hw, p.device)
         return SecretKey(id=pid, data=_secret_key_core(p, s))
 
     def gen_secret_key_gaussian(self, pid: str) -> SecretKey:
         """Gaussian secret (GenSecretKeyGaussian, keygen.go:63-65)."""
         p = self.params
-        s = sampling.gaussian(self.gen, p.n, p.device, sigma=p.sigma)
+        s = sampling.gaussian(self._keys.next(), p.n, p.device,
+                              sigma=p.sigma)
         return SecretKey(id=pid, data=_secret_key_core(p, s))
 
     def _gaussian_qp(self, *batch) -> torch.Tensor:
         """Gaussian error, extended to QP, NTT domain, Montgomery form."""
         p = self.params
-        total = 1
-        for b in batch:
-            total *= b
-        e = sampling.gaussian(self.gen, total * p.n, p.device,
-                              sigma=p.sigma).reshape(*batch, p.n)
+        e = sampling.gaussian(self._keys.next(), math.prod(batch) * p.n,
+                              p.device, sigma=p.sigma).reshape(*batch, p.n)
         return _gaussian_qp_core(p, e)
 
     def gen_public_key(self, sk: SecretKey) -> PublicKey:

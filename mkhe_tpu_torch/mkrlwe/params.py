@@ -2,8 +2,9 @@
 
 Port of mkhe_tpu/mkrlwe/params.py. A CRS is a uniform (beta, Lq+Lp, N)
 polynomial vector, NTT domain by fiat, stored in Montgomery form. Each is
-drawn from a torch.Generator seeded from (crs_seed, idx), so Parameters
-built independently on the same kind of device agree.
+drawn, as in the JAX package, under the threefry key
+fold_in(key(crs_seed), idx) (ops/threefry.py), on the parameters' device,
+so that both packages build the same CRS from the same crs_seed.
 
 new_parameters draws the JAX package's index set, all of it at
 construction (default_crs_indices): 0 (public and relinearization keys),
@@ -26,7 +27,7 @@ import torch
 
 from .. import config
 from ..ops import modmath as mm
-from ..ops import sampling
+from ..ops import sampling, threefry
 from ..ops.ring import Ring
 from ..utils import security
 
@@ -135,16 +136,11 @@ class Parameters:
         return a[:self.beta(level)][:, self.qp_limb_index(level), :]
 
 
-def _crs_generator(seed: int, idx: int, device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(((seed & 0xFFFFFFFF) << 32) | (idx & 0xFFFFFFFF))
-    return g
-
-
 def gen_crs(ring_qp: Ring, beta: int, seed: int, idx: int) -> torch.Tensor:
-    u = sampling.uniform(_crs_generator(seed, idx, ring_qp.device), ring_qp,
-                         beta)
-    return ring_qp.to_mont(u)
+    """The CRS at idx: uniform under fold_in(key(seed), idx), both taken
+    mod 2^32, in Montgomery form (mkhe_tpu/mkrlwe/params.py:101-120)."""
+    key = threefry.fold_in(threefry.key(seed), idx)
+    return ring_qp.to_mont(sampling.uniform(key, ring_qp, beta))
 
 
 def build_parameters(logn: int, q_moduli, p_moduli, gamma: int,

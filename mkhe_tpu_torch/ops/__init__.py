@@ -1,1 +1,2 @@
-"""Ring arithmetic substrate: modmath, ring, NTT kernels, basis, sampling."""
+"""Ring arithmetic substrate: modmath, ring, NTT kernels, basis, sampling
+and the threefry bits it draws from."""

@@ -1,13 +1,11 @@
 """Samplers for RLWE key material and encryption randomness.
 
-Port of mkhe_tpu/ops/sampling.py, driven by an explicit torch.Generator
-(on the device where the samples are drawn) instead of jax.random keys:
-uniform mod q_i, ternary with P(0) = 1/2, a discrete gaussian (sigma =
-3.2, truncated at 6 sigma) by inverse CDT, a sparse ternary with a fixed
-Hamming weight, and RNS lifts of the gaussian and the ternary. The
-distributions are the JAX package's; the bits are not (a
-torch.Generator is not threefry), so tests that need both packages to
-agree feed them the same samples.
+Port of mkhe_tpu/ops/sampling.py: uniform mod q_i, ternary with P(0) =
+1/2, a discrete gaussian (sigma = 3.2, truncated at 6 sigma) by inverse
+CDT, a sparse ternary with a fixed Hamming weight, and RNS lifts of the
+gaussian and the ternary. Each takes a threefry key (ops/threefry.py) and
+draws the JAX package's bits under the same key, on the device it is
+given, so both packages make the same samples from the same key.
 """
 
 from __future__ import annotations
@@ -18,16 +16,20 @@ import math
 import numpy as np
 import torch
 
+from . import threefry
 from .ring import Ring
 
 
-def uniform(gen: torch.Generator, ring: Ring, *batch) -> torch.Tensor:
-    """Uniform in [0, q_i) per limb, shape (*batch, L, N): a 62-bit draw
-    reduced mod q_i (bias < 2^-33 for q < 2^29)."""
+def uniform(key, ring: Ring, *batch) -> torch.Tensor:
+    """Uniform in [0, q_i) per limb, shape (*batch, L, N): two u32 draws
+    hi, lo per coefficient, v = (hi * 2^32 + lo) mod q_i (bias < 2^-35
+    for 29-bit q), the value the JAX package's Barrett and Shoup steps
+    give."""
     shape = (*batch, ring.nlimbs, ring.n)
-    r = torch.randint(0, 1 << 62, shape, generator=gen, dtype=torch.int64,
-                      device=ring.device)
-    return r % ring.q[:, None]
+    hi, lo = threefry.bits(key, (2, *shape), ring.device)
+    q = ring.q[:, None]
+    v = hi % q
+    return v.mul_((1 << 32) % q).add_(lo % q).remainder_(q)
 
 
 def lift_signed(vals, ring: Ring) -> torch.Tensor:
@@ -37,10 +39,10 @@ def lift_signed(vals, ring: Ring) -> torch.Tensor:
     return torch.where(v < 0, ring.q[:, None] + v, v)
 
 
-def ternary(gen: torch.Generator, n: int, device) -> torch.Tensor:
-    """{-1, 0, +1} with P(0) = 1/2, P(+1) = P(-1) = 1/4. int64 (n,)."""
-    b = torch.randint(0, 4, (n,), generator=gen, dtype=torch.int64,
-                      device=device)
+def ternary(key, n: int, device) -> torch.Tensor:
+    """{-1, 0, +1} with P(0) = 1/2, P(+1) = P(-1) = 1/4: 2 bits a
+    coefficient, 2 -> +1, 3 -> -1. int64 (n,)."""
+    b = threefry.bits(key, (n,), device) & 3
     return torch.where(b == 2, 1, torch.where(b == 3, -1, 0))
 
 
@@ -57,7 +59,7 @@ def _gaussian_cdt(sigma: float, bound: int):
     return thresholds, ks.astype(np.int64)
 
 
-def gaussian(gen: torch.Generator, n: int, device, sigma: float = 3.2,
+def gaussian(key, n: int, device, sigma: float = 3.2,
              bound: int | None = None) -> torch.Tensor:
     """Discrete gaussian by inverse CDT, truncated at 6 sigma. int64 (n,)."""
     if bound is None:
@@ -65,32 +67,31 @@ def gaussian(gen: torch.Generator, n: int, device, sigma: float = 3.2,
     thresholds, ks = _gaussian_cdt(float(sigma), bound)
     thresholds = torch.from_numpy(thresholds).to(device)
     ks = torch.from_numpy(ks).to(device)
-    u = torch.randint(0, 1 << 32, (n,), generator=gen, dtype=torch.int64,
-                      device=device)
+    u = threefry.bits(key, (n,), device)
     idx = torch.searchsorted(thresholds, u, right=True)
     return ks[idx.clamp(max=len(ks) - 1)]
 
 
-def ternary_sparse(gen: torch.Generator, n: int, hw: int, device
-                   ) -> torch.Tensor:
+def ternary_sparse(key, n: int, hw: int, device) -> torch.Tensor:
     """Exactly hw non-zero coefficients, each +-1 with equal probability
     (lattigo's NewTernarySamplerSparse, GenSecretKeySparse, keygen.go:
-    78-85). int64 (n,)."""
-    pos = torch.randperm(n, generator=gen, device=device)[:hw]
-    signs = torch.randint(0, 2, (hw,), generator=gen, dtype=torch.int64,
-                          device=device) * 2 - 1
-    return torch.zeros(n, dtype=torch.int64, device=device).index_put_(
-        (pos,), signs)
+    78-85): the first hw positions of a permutation under one half of the
+    key, their signs from the other half's bits. int64 (n,)."""
+    k1, k2 = threefry.split(key)
+    pos = threefry.permutation(k1, n, device)[:hw]
+    signs = torch.where((threefry.bits(k2, (n,), device) & 1) == 1, 1, -1)
+    mask = torch.zeros(n, dtype=torch.int64, device=device)
+    return signs * mask.index_fill_(0, pos, 1)
 
 
-def gaussian_rns(gen: torch.Generator, ring: Ring, *batch,
-                 sigma: float = 3.2) -> torch.Tensor:
+def gaussian_rns(key, ring: Ring, *batch, sigma: float = 3.2
+                 ) -> torch.Tensor:
     """Gaussian error lifted to RNS, shape (*batch, L, N)."""
-    e = gaussian(gen, math.prod(batch) * ring.n, ring.device, sigma=sigma)
+    e = gaussian(key, math.prod(batch) * ring.n, ring.device, sigma=sigma)
     return lift_signed(e.reshape(*batch, ring.n), ring)
 
 
-def ternary_rns(gen: torch.Generator, ring: Ring, *batch) -> torch.Tensor:
+def ternary_rns(key, ring: Ring, *batch) -> torch.Tensor:
     """Ternary values lifted to RNS, shape (*batch, L, N)."""
-    t = ternary(gen, math.prod(batch) * ring.n, ring.device)
+    t = ternary(key, math.prod(batch) * ring.n, ring.device)
     return lift_signed(t.reshape(*batch, ring.n), ring)

@@ -12,8 +12,9 @@ mkhe_tpu's, on the CPU at small logN:
   - IDSet, Ciphertext.c0 / party, new_ciphertext, pad_ciphertext,
     KeySet.delete / ids, new_message and the CNN module aliases;
   - the sparse and Gaussian secret keys, bit for bit given the same
-    signed samples, and the law of the port's own samples; gaussian_rns
-    and ternary_rns;
+    signed samples, each sample equal to the JAX sampler's under the same
+    key, and the law of the port's own samples; gaussian_rns and
+    ternary_rns;
   - the four pt_ntt / ct_ntt combinations of encryption, bit for bit;
   - utils.crt and utils.security on random inputs.
 
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mkhe_tpu import mkckks as jckks
@@ -43,6 +45,7 @@ from mkhe_tpu_torch import mkrlwe as trlwe
 from mkhe_tpu_torch.mkrlwe import encryptor as tenc
 from mkhe_tpu_torch.mkrlwe import keygen as tkg
 from mkhe_tpu_torch.ops import sampling as tsampling
+from mkhe_tpu_torch.ops import threefry
 from mkhe_tpu_torch.utils import crt as tcrt
 from mkhe_tpu_torch.utils import security as tsec
 
@@ -339,35 +342,43 @@ def carried():
                                        ("gaussian", 3)])
 def test_sparse_and_gaussian_secret_keys(carried, kind, seed):
     """The key of the port's own sample equals the JAX core's on the same
-    signed sample; the sample has exactly hw non-zeros in {-1, 1}, or
-    stays within the CDT's bound floor(6 sigma)."""
+    signed sample, and the sample is the JAX sampler's under the same key
+    (KeyGenerator(seed)'s first key: split(key(seed))[1]); it has exactly
+    hw non-zeros in {-1, 1}, or stays within the CDT's bound
+    floor(6 sigma)."""
     rp, tp = carried["rp"], carried["tp"]
     hw = 64
     kgen = trlwe.KeyGenerator(tp, seed=seed)
-    g = torch.Generator()
-    g.manual_seed(seed)
+    k = threefry.split(threefry.key(seed))[1]
+    jk = jax.random.split(jax.random.key(seed))[1]
     if kind == "sparse":
         sk = kgen.gen_secret_key_sparse("a", hw)
-        s = tsampling.ternary_sparse(g, tp.n, hw, "cpu")
+        s = tsampling.ternary_sparse(k, tp.n, hw, "cpu")
+        want = jsampling.ternary_sparse(jk, tp.n, hw)
         assert int(torch.count_nonzero(s)) == hw
         assert set(s[s != 0].tolist()) <= {-1, 1}
     else:
         sk = kgen.gen_secret_key_gaussian("a")
-        s = tsampling.gaussian(g, tp.n, "cpu", sigma=tp.sigma)
+        s = tsampling.gaussian(k, tp.n, "cpu", sigma=tp.sigma)
+        want = jsampling.gaussian(jk, tp.n, sigma=tp.sigma)
         assert int(s.abs().max()) <= math.floor(6 * tp.sigma)
         assert float(s.double().std()) > 1.0
+    np.testing.assert_array_equal(s.numpy(), np.asarray(want))
     assert torch.equal(sk.data, tkg._secret_key_core(tp, s))
     _same(sk.data, jkg._secret_key_core(rp, jnp.asarray(s.numpy(),
                                                         jnp.int32)))
 
 
 def test_sparse_sampler_law():
-    """Over 200 draws at n = 64, hw = 16: every draw has 16 non-zeros, and
-    every position and both signs turn up (bounds > 6 sigma wide)."""
-    g = torch.Generator()
-    g.manual_seed(4)
-    draws = torch.stack([tsampling.ternary_sparse(g, 64, 16, "cpu")
-                         for _ in range(200)])
+    """Over 200 draws at n = 64, hw = 16, each under the next key of a
+    split chain: every draw has 16 non-zeros, and every position and both
+    signs turn up (bounds > 6 sigma wide)."""
+    k = threefry.key(4)
+    draws = []
+    for _ in range(200):
+        k, sub = threefry.split(k)
+        draws.append(tsampling.ternary_sparse(sub, 64, 16, "cpu"))
+    draws = torch.stack(draws)
     assert bool((torch.count_nonzero(draws, dim=1) == 16).all())
     hits = (draws != 0).sum(0)          # mean 50, sd ~6.1
     assert int(hits.min()) > 10 and int(hits.max()) < 90
@@ -376,19 +387,19 @@ def test_sparse_sampler_law():
 
 
 def test_rns_samplers_match_jax_lift(carried):
+    """gaussian_rns / ternary_rns lift one flat draw of the base sampler
+    under the same key, as the JAX package's lift does."""
     rp, tp = carried["rp"], carried["tp"]
     ring, jring = tp.ring_q, rp.ring_q
+    k = threefry.key(8)
     for fn, base in ((tsampling.gaussian_rns, tsampling.gaussian),
                      (tsampling.ternary_rns, tsampling.ternary)):
-        g1, g2 = torch.Generator(), torch.Generator()
-        g1.manual_seed(8)
-        g2.manual_seed(8)
-        got = fn(g1, ring, 2, 3)
-        vals = base(g2, 6 * ring.n, "cpu").reshape(2, 3, ring.n)
+        got = fn(k, ring, 2, 3)
+        vals = base(k, 6 * ring.n, "cpu").reshape(2, 3, ring.n)
         assert got.shape == (2, 3, ring.nlimbs, ring.n)
         _same(got, jsampling.lift_signed(jnp.asarray(vals.numpy(),
                                                      jnp.int32), jring))
-        assert fn(g1, ring).shape == (ring.nlimbs, ring.n)
+        assert fn(k, ring).shape == (ring.nlimbs, ring.n)
 
 
 @pytest.mark.parametrize("pt_ntt,ct_ntt", [(False, False), (True, False),
@@ -433,7 +444,7 @@ def test_encryptor_flags_decrypt(carried):
     sks = trlwe.SecretKeySet()
     sks.add(sk)
     ring = tp.ring_q
-    pt = tsampling.uniform(torch.Generator().manual_seed(1), ring)
+    pt = tsampling.uniform(threefry.key(1), ring)
     ct = trlwe.Encryptor(tp, seed=97).encrypt(ring.ntt(pt), pk, pt_ntt=True,
                                               ct_ntt=True)
     ct = trlwe.Ciphertext(ids=ct.ids, data=ring.intt(ct.data))

@@ -1,8 +1,9 @@
 """The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, the split NTT's
 kernels in csrc/ntt_split.cu in their five modes, and the NTT cost probe's
 variant in csrc/ntt_variant.cu) against their plain PyTorch versions on
-the card, bit for bit; and rotation, conjugation and
-the CNN pipeline on the card against the same calls on the CPU. Needs an
+the card, bit for bit; rotation, conjugation and the CNN pipeline on the
+card against the same calls on the CPU; and threefry's bits, every sampler
+and the PN14QP433_CNN CRS drawn on the card against the CPU's. Needs an
 NVIDIA GPU and nvcc; without a card every test skips. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -358,7 +359,7 @@ def _carry(params, device):
 
 
 def _keys(params, rots, conj, seed):
-    """Two parties' keys on the CPU from torch.Generators, and copies of
+    """Two parties' keys on the CPU from the port's seeds, and copies of
     the evaluation keys for the card."""
     from mkhe_tpu_torch import convert, mkrlwe
     kgen = mkrlwe.KeyGenerator(params.rlwe, seed=seed)
@@ -494,7 +495,7 @@ def test_cnn_mini_pipeline_matches_cpu(gen):
 
 def _fuse_ctx(gen, rots=(1, 2)):
     """CKKS at logN 10 (alpha 2, 2 parties) on the card, keys from
-    torch.Generators, with rotation CRS and keys for rots and a
+    the port's seeds, with rotation CRS and keys for rots and a
     conjugation key; fresh() encrypts one ciphertext under each party."""
     import numpy as np
     from mkhe_tpu_torch import mkckks, mkrlwe
@@ -902,3 +903,50 @@ def test_sharded_paths_over_nccl(gen):
         assert torch.equal(o["results"][2][1], want[2].cpu())
         assert torch.equal(o["results"][3][1], want[3].cpu())
         assert o["launches"][0]["ntt_fwd"] == 1
+
+
+# ----------------------------------------------------------------------------
+# Threefry, the samplers and the CRS: the card against the CPU
+# ----------------------------------------------------------------------------
+
+def test_threefry_bits_and_permutation_match_cpu(gen):
+    """bits at shapes that cross the chunk, and permutation at 0, 1 and
+    2 rounds, on the card equal the CPU's."""
+    from mkhe_tpu_torch.ops import threefry
+    for seed in (0, 2 ** 31, -1):
+        k = threefry.key(seed)
+        for shape in ((7,), (3, 5, 7), (2, 7, 18, 1 << 10),
+                      (threefry.CHUNK + 3,)):
+            assert torch.equal(threefry.bits(k, shape, "cuda").cpu(),
+                               threefry.bits(k, shape, "cpu"))
+        for n in (1, 2, 1626, 1 << 15):
+            assert torch.equal(threefry.permutation(k, n, "cuda").cpu(),
+                               threefry.permutation(k, n, "cpu"))
+
+
+def test_samplers_match_cpu(gen):
+    """Every sampler under one key on the card equals the CPU's."""
+    from mkhe_tpu_torch.ops import sampling, threefry
+    mods = ntt_primes(12, 28.9, 1) + ntt_primes(12, 27.0, 5)
+    rc, rg = Ring.create(mods, 12, "cpu"), Ring.create(mods, 12, "cuda")
+    k = threefry.key(17)
+    n = rc.n
+    pairs = [(sampling.uniform(k, rg, 3), sampling.uniform(k, rc, 3)),
+             (sampling.ternary(k, n, "cuda"), sampling.ternary(k, n, "cpu")),
+             (sampling.gaussian(k, n, "cuda"), sampling.gaussian(k, n, "cpu")),
+             (sampling.ternary_sparse(k, n, 192, "cuda"),
+              sampling.ternary_sparse(k, n, 192, "cpu")),
+             (sampling.gaussian_rns(k, rg, 2), sampling.gaussian_rns(k, rc, 2)),
+             (sampling.ternary_rns(k, rg, 2), sampling.ternary_rns(k, rc, 2))]
+    for got, want in pairs:
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_cnn_crs_matches_cpu(gen):
+    """The PN14QP433_CNN parameters' every default CRS, drawn on the card,
+    equals the one drawn on the CPU."""
+    from mkhe_tpu_torch import mkckks
+    cpu, card = mkckks.PN14QP433_CNN("cpu"), mkckks.PN14QP433_CNN("cuda")
+    assert sorted(card.rlwe.crs) == sorted(cpu.rlwe.crs)
+    for idx, a in cpu.rlwe.crs.items():
+        assert torch.equal(card.rlwe.crs[idx].cpu(), a)

@@ -13,7 +13,7 @@ for bit, at both tests/test_mkbfv.py parameter sets (logN 9: alpha 1 with
   - Evaluator.rotate_new (with a CRS of its own, and by power-of-two
     steps) and conjugate_new at 2 and 4 parties, with the split on and
     off, which also decrypt exactly to the rotated slot rows;
-  - the port's own path, keys from torch.Generators, decrypts exactly."""
+  - the port's own path, keys from its own seeds, decrypts exactly."""
 
 import numpy as np
 import pytest
@@ -351,7 +351,7 @@ def test_new_parameters_rejects_what_the_jax_package_rejects():
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_port_generator_path(k):
-    """Keys, encryption, mult and decryption from torch.Generators alone
+    """Keys, encryption, mult and decryption from the port's seeds alone
     (alpha 2), with the split NTT on: exact."""
     params = tbfv.new_parameters(LOGN, *SETS[2], t=T, device="cpu")
     kgen = tbfv.KeyGenerator(params, seed=81)

@@ -6,8 +6,8 @@ tests/test_mkckks.py recipe (logN 10, alpha = 1):
   - Evaluator.mul_relin_new + rescale is bit-identical on state carried
     across by convert.py, and decrypts within the reference bound
     log2|err| <= -log2(scale) + logslots + 12 (tests/test_mkckks.py:58-64);
-  - the port's own path (torch.Generator keys, no JAX state) meets the
-    bound for 2 and 4 parties;
+  - the port's own path (keys and encryptions from its own seeds, no JAX
+    state) meets the bound for 2 and 4 parties;
   - importing the port loads no JAX.
 """
 
@@ -272,7 +272,8 @@ def test_security_table_matches_jax(logn):
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_port_generator_path(k):
-    """Keys, encryption, mult and decryption from torch.Generators alone."""
+    """Keys, encryption, mult and decryption from the port's seeds alone
+    (threefry keys, as the JAX package draws them)."""
     params = tckks.new_parameters(**RECIPE, device="cpu")
     kgen = trlwe.KeyGenerator(params.rlwe, seed=51)
     sks, rlk, pks = trlwe.SecretKeySet(), trlwe.RelinearizationKeySet(), {}
@@ -299,6 +300,7 @@ def test_port_imports_no_jax():
             "mkhe_tpu_torch.models, mkhe_tpu_torch.profile_cnn, "
             "mkhe_tpu_torch.profile_ntt, mkhe_tpu_torch.profile_ab, "
             "mkhe_tpu_torch.ntt_probe, mkhe_tpu_torch.utils.serialize, "
+            "mkhe_tpu_torch.ops.threefry, mkhe_tpu_torch.profile_params, "
             "mkhe_tpu_torch.utils.oracle, mkhe_tpu_torch.utils.crt, "
             "mkhe_tpu_torch.examples.two_party_ckks, "
             "mkhe_tpu_torch.examples.two_party_bfv\n"
