@@ -6,9 +6,9 @@
 Phases, one line each, then two JSON lines:
   1. device   torch / CUDA versions and the card, plus nvidia-smi's
               "name, power.limit" line;
-  2. build    nvcc builds csrc/ntt.cu, csrc/ntt_split.cu and
-              csrc/ntt_variant.cu (sm_90a) from the checkout, one
-              compiler per source, started together;
+  2. build    nvcc builds csrc/ntt.cu, csrc/ntt_split.cu,
+              csrc/ntt_variant.cu and csrc/keyswitch.cu (sm_90a) from the
+              checkout, one compiler per source, started together;
               ptxas's spills and registers per kernel;
   3. kernels  the NTT kernels against their plain PyTorch versions on the
               card, bit for bit, at the PN15QP880 QP moduli (32 limbs,
@@ -48,6 +48,7 @@ Phases, one line each, then two JSON lines:
               encryptions -> Evaluator.mul_relin_new (mult + relin +
               rescale) -> decrypt, and one 2-party request; each decrypts
               within log2|err| <= -log2(scale) + logslots + 12; the NTT
+              and key-switching kernels' (mod_up, mod_down, mul_accum)
               launch counters must grow during the phase;
   5. bfv      the MKBFV path with the split NTT on (config.ntt_mxu_tail):
               PN15QP880, 4 parties, keys from the port's seeds on the card;
@@ -56,9 +57,9 @@ Phases, one line each, then two JSON lines:
               fresh encryptions -> Evaluator.mul_relin_new -> decrypt,
               each exactly equal to the plaintext product mod t; the
               split's launch counters (the fused forward, the fused
-              inverse) must grow and the full kernels', the head's, the
-              tail's and the DIT-alone mode's stay at 0; the last 4-party
-              mult again with the
+              inverse) and the key-switching kernels' must grow and the
+              full kernels', the head's, the tail's and the DIT-alone
+              mode's stay at 0; the last 4-party mult again with the
               switch off, off and on must give the same ciphertext bit for
               bit;
   6. cnn      the two-party encrypted MNIST CNN (models/cnn.py, REF
@@ -71,11 +72,11 @@ Phases, one line each, then two JSON lines:
               (conv -> square -> fc1 -> square -> fc2) timed with CUDA
               events, per layer too -> decrypt, each logit within
               rtol = atol = 5e-3 of plain_forward and the same argmax;
+              the NTT and key-switching launch counters must grow;
               a batched hoisted rotation over fc1's 7 indices equal to 7
               single ones bit for bit, and a conjugation that decrypts to
-              the conjugate; the NTT launch counters must grow; the
-              key-switched rotations of the requests are counted
-              (profile_cnn.count_rotations).
+              the conjugate; the key-switched rotations of the requests
+              are counted (profile_cnn.count_rotations).
   7. fused    the runtime tier at full width (fuse.py, the CNN's
               build_fused_inference, the batched mults), every replay on
               inputs that are not the capture's: CKKS PN15QP880, 4
@@ -141,13 +142,27 @@ Phases, one line each, then two JSON lines:
               profile_params.fixed_plaintext under that pk, each equal to
               the digest the JAX package gives (tests/torch_seed_digests.json,
               recomputed by tests/test_torch_prng.py).
+ 11. keyswitch the key-switching kernels of csrc/keyswitch.cu against
+              their plain versions on the card, bit for bit, at the full
+              shapes of one 4-party PN15QP880 mult at level 27: mod_up as
+              the digits of both operands ((8, 28) -> (8, 14, 32) x 2^15)
+              and of t ((4, 28) -> (4, 14, 32)), and BFV's Q -> QMul
+              (28 -> 28); mul_accum as the x, y aggregation, Ext and the
+              56-term v-sum; mod_down of zt (8 x 32) and vz (5 x 32);
+              every digit with coefficients where the float32 v differs
+              from the exact floor (the seed's, planted where it gives
+              none); each kernel's ms (single launches; mean of 10), its
+              plain version's ms on the card and its bound
+              (keyswitch_bound).
 Then {"kernels": [...]} (launches summed over phases 4-6, as before phase
 7 existed, so phase 7's captured launches are not in them; ntt_variant's
 from phase 3b's probe run: the wrapper's launches, those captured into
 its CUDA graphs (profile_ntt.graph_ms) included and the graphs' replays,
 which run without the wrapper, not; times, bounds and plain times, all single
-launches, and ms_mean10 of phase 3 at logN 15, ntt_variant's of phase 3b)
-and, last, {"ok": true, "device": {...}}.
+launches, and ms_mean10 of phase 3 at logN 15, ntt_variant's of phase 3b,
+mod_up's, mod_down's and mul_accum's of phase 11 at the digits of both
+operands, zt and the v-sum; their launches, like the NTT's, over phases
+4-6) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
 fails in phase 1.
@@ -175,7 +190,7 @@ from mkhe_tpu_torch import (config, convert, fuse, mkbfv, mkckks, mkrlwe,
 from mkhe_tpu_torch.examples import two_party_bfv, two_party_ckks
 from mkhe_tpu_torch.mkrlwe import keyswitch as ksw
 from mkhe_tpu_torch.models import cnn
-from mkhe_tpu_torch.ops import ntt_cuda
+from mkhe_tpu_torch.ops import basis_cuda, ntt_cuda
 from mkhe_tpu_torch.ops.ring import Ring
 from mkhe_tpu_torch.profile_ntt import cuda_ms, graph_ms
 from mkhe_tpu_torch.parallel import _ranks, dist_ntt
@@ -186,7 +201,10 @@ SEED = 2024
 NTT_CU = "mkhe_tpu_torch/csrc/ntt.cu"
 SPLIT_CU = "mkhe_tpu_torch/csrc/ntt_split.cu"
 VARIANT_CU = "mkhe_tpu_torch/csrc/ntt_variant.cu"
+KEYSWITCH_CU = "mkhe_tpu_torch/csrc/keyswitch.cu"
 DIGESTS = "tests/torch_seed_digests.json"
+KS_KERNELS = ("mod_up", "mod_down", "mul_accum")
+MAIN_COUNTS = ("ntt_fwd", "ntt_inv") + KS_KERNELS  # phases 4 and 6 launch
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
     ("ntt_inv", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
@@ -202,8 +220,24 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     # (phase 3 only)
     ("ntt_inv_tailed", SPLIT_CU, "mkhe_tpu/ops/ntt_pallas.py:175"),
     ("ntt_variant", VARIANT_CU, "benchmarks/ntt_probe.py:35"),
+    # not Pallas kernels: the element-wise programs XLA fuses out of the
+    # JAX package's key switching (mod_up, mod_down, the 64-bit contraction)
+    ("mod_up", KEYSWITCH_CU, "mkhe_tpu/ops/basis.py:93"),
+    ("mod_down", KEYSWITCH_CU, "mkhe_tpu/ops/basis.py:179"),
+    ("mul_accum", KEYSWITCH_CU, "mkhe_tpu/mkrlwe/keyswitch.py:82"),
 )
-MAIN = KERNELS[:6]   # the kernels whose launches phases 4-6 count
+NTT_MAIN = KERNELS[:6]   # the NTT kernels whose launches phases 4-6 count
+MAIN = NTT_MAIN + KERNELS[7:]   # every kernel phases 4-6 count
+
+
+def _reset_counters() -> None:
+    ntt_cuda.reset_counters()
+    basis_cuda.reset_counters()
+
+
+def _counters() -> dict:
+    """Every wrapper's launches since _reset_counters()."""
+    return {**ntt_cuda.counters(), **basis_cuda.counters()}
 
 
 def phase_device() -> dict:
@@ -393,7 +427,7 @@ def phase_kernels(ring15: Ring, ring14: Ring) -> dict:
                              f"{mism} values, from the full kernels and in "
                              f"round trips in {comp_mism}")
     return {name: dict(max_abs_err=err[name], **times["15"][name])
-            for name, _, _ in MAIN}
+            for name, _, _ in NTT_MAIN}
 
 
 def phase_probe(ring14: Ring) -> dict:
@@ -539,12 +573,12 @@ def phase_mult(params) -> dict:
         return start.elapsed_time(end), log2_err
 
     torch.cuda.reset_peak_memory_stats()
-    ntt_cuda.reset_counters()
+    _reset_counters()
     runs4 = [request(users) for _ in range(3)]
     ms2, err2 = request(users[:2])
-    launches = ntt_cuda.counters()
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) < 1:
-        raise AssertionError(f"the main path launched no kernel: {launches}")
+    launches = _counters()
+    if min(launches[k] for k in MAIN_COUNTS) < 1:
+        raise AssertionError(f"the main path missed a kernel: {launches}")
     ms4 = [ms for ms, _ in runs4]
     print(f"[4 mult] PN15QP880 logN {params.logn} L {params.max_level + 1} "
           f"+ {params.rlwe.pcount} P, alpha {params.rlwe.alpha}; keygen "
@@ -552,8 +586,8 @@ def phase_mult(params) -> dict:
           f"{[round(m, 3) for m in ms4]} median {statistics.median(ms4):.3f}"
           f", log2 err {max(e for _, e in runs4):.2f}; 2-party ms "
           f"{ms2:.3f}, log2 err {err2:.2f}; bound {bound:.2f}; launches "
-          f"{ {k: launches[k] for k in ('ntt_fwd', 'ntt_inv')} }; peak mem "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          f"{ {k: launches[k] for k in MAIN_COUNTS} }; "
+          f"peak mem {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     return launches
 
@@ -625,15 +659,15 @@ def phase_bfv(params) -> dict:
             return c0, c1, res, ms
 
         torch.cuda.reset_peak_memory_stats()
-        ntt_cuda.reset_counters()
+        _reset_counters()
         first4 = request(4)
         ms2 = request(2)[3]
         c0, c1, res_on, ms_on = request(4)
-        launches = ntt_cuda.counters()
+        launches = _counters()
         split = ("ntt_split_fwd", "ntt_split_inv")
         unsplit = ("ntt_tail", "ntt_inv_tailed", "ntt_fwd_head", "ntt_fwd",
                    "ntt_inv")
-        if (min(launches[k] for k in split) < 1
+        if (min(launches[k] for k in split + KS_KERNELS) < 1
                 or any(launches[k] for k in unsplit)):
             raise AssertionError(f"the BFV path did not run the fused split "
                                  f"kernels alone: {launches}")
@@ -657,7 +691,7 @@ def phase_bfv(params) -> dict:
           f" 2-party {ms2:.3f}; last 4-party mult again, bit-identical, ms "
           f"split on {[round(m, 3) for m in turns[True]]} off "
           f"{[round(m, 3) for m in turns[False]]}; launches "
-          f"{ {k: launches[k] for k in split} }; peak mem "
+          f"{ {k: launches[k] for k in split + KS_KERNELS} }; peak mem "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     return launches
 
@@ -697,12 +731,12 @@ def phase_cnn(params) -> dict:
         return ms, float(np.max(np.abs(logits - want))), img, ct_img
 
     torch.cuda.reset_peak_memory_stats()
-    ntt_cuda.reset_counters()
+    _reset_counters()
     with profile_cnn.count_rotations() as rot:
         runs = [request(k) for k in range(3)]
-    launches = ntt_cuda.counters()
-    if min(launches["ntt_fwd"], launches["ntt_inv"]) < 1:
-        raise AssertionError(f"the CNN launched no NTT kernel: {launches}")
+    launches = _counters()
+    if min(launches[k] for k in MAIN_COUNTS) < 1:
+        raise AssertionError(f"the CNN missed a kernel: {launches}")
     # fc1's batched hoisted rotation against single ones, and conjugation
     _, _, img, ct = runs[-1]
     h = ev.hoisted_form(ct)
@@ -733,8 +767,8 @@ def phase_cnn(params) -> dict:
           f"{max(e for _, e, _, _ in runs):.3g} (rtol = atol = 5e-3), argmax "
           f"equal; batched hoisted rotation over {len(idxs)} indices "
           f"bit-identical to single ones; conjugation err {conj_err:.3g}; "
-          f"launches { {k: launches[k] for k in ('ntt_fwd', 'ntt_inv')} }; "
-          f"peak mem {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          f"launches { {k: launches[k] for k in MAIN_COUNTS} }"
+          f"; peak mem {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     return launches
 
@@ -1406,6 +1440,141 @@ def phase_seeds() -> None:
           f"{ {k: round(v, 3) for k, v in secs.items()} }", flush=True)
 
 
+def keyswitch_bound(name: str, ins, out, width: int):
+    """(ms, "bytes" or "operations") of a key-switching kernel's work:
+    every distinct input element read once (a broadcast operand once) and
+    every output written once, int64; int32 operations a counted as one
+    per 32-bit operation of the kernel's arithmetic: mod_up (width =
+    limbs a digit) 8 an input limb (REDC, the float32 term) and 2 width +
+    12 an output (the wide products, the Montgomery fold, the
+    correction), mod_down 12 more an output (Barrett, difference, REDC),
+    mul_accum (width = terms) 2 a term and 12 an output."""
+    nbytes = 8 * (sum(t.numel() for t in ins) + out.numel())
+    per_out = 2 * width + 12 + (12 if name == "mod_down" else 0)
+    ops = out.numel() * per_out
+    if name != "mul_accum":
+        ops += 8 * (ins[0].numel() if name == "mod_up" else ins[1].numel())
+    return profile_ntt.bound(nbytes, ops)
+
+
+def phase_keyswitch(params, params_bfv) -> dict:
+    """The key-switching kernels (csrc/keyswitch.cu) against their plain
+    versions on the card, bit for bit, at the full shapes of one 4-party
+    PN15QP880 mult at level 27 and BFV's 28 -> 28 mod_up, with the float32
+    v boundary: the coefficients where the float32 v differs from the
+    exact floor (basis_cuda.v_floors), planted where the seed gives none.
+    Kernel ms (single launches; mean of 10), plain ms, bound. Returns the
+    {"kernels"} line's stats (mod_up: the digits of both operands;
+    mod_down: zt; mul_accum: the v-sum)."""
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 40)
+    rp = params.rlwe
+    level = params.max_level
+    ring_q, ring_qp = rp.ring_q_at(level), rp.ring_qp_at(level)
+    q, qp, pm = ring_q.moduli, ring_qp.moduli, rp.ring_p.moduli
+    qmul, dev, n = params_bfv.qmul_moduli, torch.device("cuda"), rp.n
+    bc = basis_cuda
+    qq, qpq = ring_q.q[:, None], ring_qp.q[:, None]
+    boundary = {}
+
+    def coeffs(shape, src, alpha):
+        """Canonical coefficients over src with the float32 v boundary in
+        every digit that has one (basis_cuda.boundary_ys): the seed's,
+        else planted at two coefficients."""
+        x = _rand(gen, shape, torch.tensor(src, device=dev)[:, None])
+        has = [bc.boundary_ys(src[lo:lo + alpha]) is not None
+               for lo in range(0, len(src), alpha)]
+
+        def differ(x):
+            v32, exact = bc.v_floors(x, src, alpha)
+            per = (v32 != exact).any(axis=tuple(range(v32.ndim - 2)) + (-1,))
+            return int((v32 != exact).sum()), all(
+                p for p, h in zip(per, has) if h)
+
+        found, shown = differ(x)
+        checked = found
+        if not shown:
+            x = bc.plant_v_boundary(x, src, alpha, [3, n - 5])
+            checked, shown = differ(x)
+            if not shown:
+                raise AssertionError(f"no float32 v boundary in {shape}")
+        boundary[tuple(shape)] = (found, checked)
+        return x
+
+    dig2 = bc.digit_tables(q, qp, rp.alpha, dev)
+    up_bfv = bc.mod_up_tables(q, qmul, dev)
+    down = bc.mod_down_tables(q, pm, dev)
+    lt = bc.limb_tables(qp, dev)
+    both = coeffs((8, 28, n), q, rp.alpha)
+    t_in = coeffs((4, 28, n), q, rp.alpha)
+    ct_bfv = coeffs((5, 28, n), q, 28)
+    dec = _rand(gen, (4, 14, 32, n), qpq)
+    keys = _rand(gen, (4, 14, 32, n), qpq)
+    x_agg = _rand(gen, (14, 32, n), qpq)
+    zt = _rand(gen, (8, 32, n), qpq)
+    zt[:, 28:] = coeffs((8, 4, n), pm, len(pm))
+    vz = _rand(gen, (5, 32, n), qpq)
+    # label, kernel, wrapper, plain, args, bound inputs, digit/term width
+    cases = [
+        ("mod_up", "digits of both operands (8, 28) -> (8, 14, 32)",
+         bc.decompose, bc.decompose_plain, (both, dig2), (both,), 2),
+        ("mod_up", "digits of t (4, 28) -> (4, 14, 32)", bc.decompose,
+         bc.decompose_plain, (t_in, dig2), (t_in,), 2),
+        ("mod_up", "BFV Q -> QMul (5, 28) -> (5, 28)", bc.mod_up,
+         bc.mod_up_plain, (ct_bfv, up_bfv), (ct_bfv,), 28),
+        ("mul_accum", "x, y aggregation (4, 14, 32) . (4, 14, 32)",
+         bc.mul_accum, bc.mul_accum_plain, (dec, keys, 1, lt),
+         (dec, keys), 4),
+        ("mul_accum", "Ext (4, 14, 32) . (14, 32)", bc.mul_accum,
+         bc.mul_accum_plain, (dec.movedim(-3, 0), x_agg.movedim(-3, 0), 1,
+                              lt), (dec, x_agg), 14),
+        ("mul_accum", "v-sum (4, 14, 32) . (4, 14, 32), 56 terms",
+         bc.mul_accum, bc.mul_accum_plain,
+         (dec.movedim((-4, -3), (0, 1)), keys.movedim((-4, -3), (0, 1)), 2,
+          lt), (dec, keys), 56),
+        ("mod_down", "zt (8, 32) -> (8, 28)", bc.mod_down, bc.mod_down_plain,
+         (zt[:, :28], zt[:, 28:], down), (zt[:, :28], zt[:, 28:]), 4),
+        ("mod_down", "vz (5, 32) -> (5, 28)", bc.mod_down, bc.mod_down_plain,
+         (vz[:, :28], vz[:, 28:], down), (vz[:, :28], vz[:, 28:]), 4),
+    ]
+    rows, mism, err = [], 0, {}
+    for name, label, kern, plain, args, ins, width in cases:
+        bc.reset_counters()
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        if bc.counters()[name] != 1:
+            raise AssertionError(f"{label}: {bc.counters()}")
+        mism += int((got != want).sum())
+        err[name] = max(err.get(name, 0), int((got - want).abs().max()))
+        b_ms, b_by = keyswitch_bound(name, ins, got, width)
+        rows.append(dict(
+            name=name, label=label, ms=cuda_ms(lambda: kern(*args), 20, 1),
+            ms_mean10=cuda_ms(lambda: kern(*args), 20),
+            plain_ms=cuda_ms(lambda: plain(*args), 3, 1), bound_ms=b_ms,
+            bound_by=b_by))
+        del got, want
+    if mism:
+        raise AssertionError(f"the key-switching kernels differ from their "
+                             f"plain versions in {mism} values")
+    print(f"[11 keyswitch] PN15QP880 level {level}, N 2^{rp.logn}: "
+          f"mismatches {mism} kernel vs plain (canonical inputs, the float32"
+          f" v boundary in every digit: {boundary} as (seed's, checked) "
+          f"coefficients where float32 v != the exact floor); ms, mean of "
+          f"10, plain ms, bound ms and share of it: "
+          + "; ".join(f"{r['name']} {r['label']}: {r['ms']:.4f}, "
+                      f"{r['ms_mean10']:.4f}, plain {r['plain_ms']:.4f}, "
+                      f"bound {r['bound_ms']:.4f} ({r['bound_by']}, "
+                      f"{r['bound_ms'] / r['ms_mean10']:.1%})"
+                      for r in rows)
+          + f"; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    line = {"mod_up": rows[0], "mul_accum": rows[5], "mod_down": rows[6]}
+    return {name: dict(max_abs_err=err[name],
+                       **{k: r[k] for k in ("ms", "ms_mean10", "plain_ms",
+                                             "bound_ms", "bound_by")})
+            for name, r in line.items()}
+
+
 def main() -> None:
     device = phase_device()
     phase_build()
@@ -1417,11 +1586,14 @@ def main() -> None:
     phases = (phase_mult(params), phase_bfv(params_bfv),
               phase_cnn(params_cnn))
     for name, _, _ in MAIN:
-        stats[name]["launches"] = sum(p[name] for p in phases)
+        stats.setdefault(name, {})["launches"] = sum(p[name] for p in phases)
     phase_fused(params, params_bfv, params_cnn)
     phase_api(params, params_bfv, params_cnn)
     phase_parallel(params, params_bfv)
     phase_seeds()
+    ks = phase_keyswitch(params, params_bfv)
+    for name in KS_KERNELS:
+        stats[name] = dict(ks[name], launches=stats[name]["launches"])
     stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -1,0 +1,293 @@
+// Key-switching element-wise kernels for Hopper (sm_90a): the exact RNS
+// basis extension (mod_up, with a digit axis for the gadget decomposition),
+// the ModDown, and the Montgomery contraction of the key products.
+//
+// These have no Pallas counterpart. In the JAX package XLA fuses each of
+// them into one element-wise pass of the jitted evaluator programs
+// (mkhe_tpu/mkckks/evaluator.py:33-122):
+//   basis_kernel<.., false>: mod_up, mkhe_tpu/ops/basis.py:93-154, and the
+//     digits of decompose_digits (:202-230) in one launch;
+//   basis_kernel<.., true>:  mod_down, basis.py:179-199 (mod_up's P -> Q
+//     extension with the (xq - conv) * P^-1 epilogue);
+//   mul_accum_kernel:        the 64-bit (hi, lo) accumulate and one
+//     Montgomery reduction of the key contractions,
+//     mkhe_tpu/mkrlwe/keyswitch.py:82-175 and ops/modmath.py:207-227.
+// Each gives the canonical residue its plain PyTorch version gives
+// (ops/basis_cuda.py); a canonical residue is unique, so any exact u32/u64
+// arithmetic agrees bit for bit. The one inexact step, mod_up's float32
+// correction v = floor(sum_i fl32(y_i) * inv_b_i), rounds every product and
+// every sum once, left to right (__fmul_rn / __fadd_rn: nvcc would contract
+// a*b+c into an FMA, and an off-by-one v moves the output by B).
+//
+// Layout: data int64 holding u32 values, N contiguous (stride 1); the other
+// axes come as element strides. Moduli are below 2^29 (checked by the
+// wrapper), so a product of two residues is below 2^58 and 64 of them fit a
+// u64.
+//
+// What bounds them on an H100: the bytes. A mod_up digit of 2 limbs reads
+// 16 B and writes 32 x 8 B per coefficient for ~15 integer instructions per
+// output; a contraction term reads 16 B for one wide multiply-add. So the
+// design is one thread per coefficient (mod_up, ModDown: per polynomial,
+// digit and coefficient, looping over the output limbs; mul_accum: per
+// output polynomial, limb and coefficient, looping over the terms), a warp
+// on 32 neighbouring coefficients so every int64 load and store is one
+// coalesced 256 B access, the basis tables in shared memory (read as
+// broadcasts: every lane of a warp reads the same word), and, in the
+// contraction, the output polynomials on the fastest grid axis so the
+// blocks that share a broadcast operand (a key over the parties) run
+// together and find it in L2.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxLimbs = 64;   // alpha (digit width) and Ld, at most
+constexpr int kFold = 32;       // contraction terms between two folds
+
+__device__ __forceinline__ uint32_t csub(uint32_t a, uint32_t q) {
+  return a >= q ? a - q : a;
+}
+
+// t * 2^-32 mod q, canonical, for t < q * 2^32 (Montgomery REDC).
+__device__ __forceinline__ uint32_t redc(uint64_t t, uint32_t q,
+                                         uint32_t qinv_neg) {
+  const uint32_t m = static_cast<uint32_t>(t) * qinv_neg;
+  return csub(static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32),
+              q);
+}
+
+// a mod q, canonical, for any u32 a (Barrett with bar = floor(2^32 / q):
+// the quotient estimate is at most 2 short).
+__device__ __forceinline__ uint32_t barrett(uint32_t a, uint32_t q,
+                                            uint32_t bar) {
+  return csub(csub(a - __umulhi(a, bar) * q, q), q);
+}
+
+// acc * 2^-32 mod q, canonical, for any u64 acc = hi * 2^32 + lo:
+// hi mod q plus REDC(lo) (<= q), one conditional subtraction.
+__device__ __forceinline__ uint32_t mont_wide(uint64_t acc, uint32_t q,
+                                              uint32_t qinv_neg,
+                                              uint32_t bar) {
+  const uint32_t lo = static_cast<uint32_t>(acc);
+  const uint32_t m = lo * qinv_neg;
+  const uint32_t t = static_cast<uint32_t>(
+      (static_cast<uint64_t>(lo) + static_cast<uint64_t>(m) * q) >> 32);
+  return csub(barrett(static_cast<uint32_t>(acc >> 32), q, bar) + t, q);
+}
+
+// The same residue class as acc, below q * 2^32 <= 2^61: hi reduced mod q.
+__device__ __forceinline__ uint64_t fold(uint64_t acc, uint32_t q,
+                                         uint32_t bar) {
+  return (static_cast<uint64_t>(barrett(static_cast<uint32_t>(acc >> 32), q,
+                                        bar))
+          << 32) | static_cast<uint32_t>(acc);
+}
+
+// Table words (ops/basis_cuda.py::pack_table), u32:
+//   dst[4 j ..]:  d_j, -d_j^-1 mod 2^32, floor(2^32 / d_j), P^-1 mod d_j in
+//                 Montgomery form (ModDown; 0 otherwise), for j < ld;
+//   then digit k at 4 ld + k * ds, ds = 4 alpha + alpha ld + ld (alpha + 1):
+//     src[4 i ..]: b_i, -b_i^-1 mod 2^32, (B_k / b_i)^-1 mod b_i (Montgomery),
+//                  float32 bits of 1 / b_i, for i < alpha;
+//     qhat[i ld + j]: B_k / b_i mod d_j (Montgomery);
+//     vq[j (alpha + 1) + v]: v B_k mod d_j, v = 0 .. alpha.
+// B_k is the product of digit k's limbs; the last digit may hold fewer than
+// alpha (its unused words are 0).
+struct BasisArgs {
+  const int64_t* x;    // (P, >= ls limbs, N): strides sxp, sxl
+  const int64_t* xq;   // ModDown: (P, ld, N): strides sqp, sql
+  int64_t* out;        // (P, beta, ld, N) contiguous
+  const uint32_t* table;
+  int64_t sxp, sxl, sqp, sql;
+  int ls, alpha, beta, ld, n, nblk;
+};
+
+// One thread per (polynomial p, digit k, coefficient c): y_i = x_i (B/b_i)^-1
+// mod b_i over the digit's limbs, v = floor(sum fl32(y_i) / b_i) in [0, lsd],
+// then for each output limb j: (sum_i y_i (B/b_i mod d_j) - v B) mod d_j;
+// with kDown, out_j = (xq_j - that) P^-1 mod d_j. kMax >= the digit width.
+template <int kMax, bool kDown>
+__global__ void __launch_bounds__(kThreads)
+basis_kernel(const BasisArgs a) {
+  extern __shared__ uint32_t sm[];
+  const int k = blockIdx.y;
+  const int64_t p = blockIdx.x / a.nblk;
+  const int c = (blockIdx.x % a.nblk) * kThreads + threadIdx.x;
+  const int ds = 4 * a.alpha + a.alpha * a.ld + a.ld * (a.alpha + 1);
+  const int dst_words = 4 * a.ld;
+  const uint32_t* tab = a.table + dst_words + k * ds;
+  for (int w = threadIdx.x; w < dst_words + ds; w += kThreads)
+    sm[w] = w < dst_words ? a.table[w] : tab[w - dst_words];
+  __syncthreads();
+  if (c >= a.n) return;
+  const uint32_t* dst = sm;
+  const uint32_t* src = sm + dst_words;
+  const uint32_t* qhat = src + 4 * a.alpha;
+  const uint32_t* vq = qhat + a.alpha * a.ld;
+  const int lo = k * a.alpha;
+  const int lsd = min(a.alpha, a.ls - lo);
+
+  uint32_t y[kMax];
+  float vf = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMax; ++i) {
+    y[i] = 0;
+    if (i < lsd) {
+      const uint32_t xi = static_cast<uint32_t>(
+          a.x[p * a.sxp + (lo + i) * a.sxl + c]);
+      y[i] = redc(static_cast<uint64_t>(xi) * src[4 * i + 2], src[4 * i],
+                  src[4 * i + 1]);
+      vf = __fadd_rn(vf, __fmul_rn(__uint2float_rn(y[i]),
+                                   __uint_as_float(src[4 * i + 3])));
+    }
+  }
+  const int v = min(max(static_cast<int>(floorf(vf)), 0), lsd);
+
+  int64_t* out = a.out + ((p * a.beta + k) * a.ld) * a.n + c;
+  for (int j = 0; j < a.ld; ++j) {
+    uint64_t acc = 0;
+#pragma unroll
+    for (int i = 0; i < kMax; ++i)
+      if (i < lsd) acc += static_cast<uint64_t>(y[i]) * qhat[i * a.ld + j];
+    const uint32_t q = dst[4 * j], qn = dst[4 * j + 1], bar = dst[4 * j + 2];
+    uint32_t r = mont_wide(acc, q, qn, bar);
+    r = csub(r + q - vq[j * (a.alpha + 1) + v], q);
+    if (kDown) {
+      const uint32_t xj = barrett(
+          static_cast<uint32_t>(a.xq[p * a.sqp + j * a.sql + c]), q, bar);
+      r = redc(static_cast<uint64_t>(csub(xj + q - r, q)) * dst[4 * j + 3], q,
+               qn);
+    }
+    out[static_cast<int64_t>(j) * a.n] = r;
+  }
+}
+
+template <int kMax, bool kDown>
+int launch_basis(const BasisArgs& a, int64_t n_polys, void* stream) {
+  const int smem = static_cast<int>(sizeof(uint32_t)) *
+                   (4 * a.ld + 4 * a.alpha + a.alpha * a.ld +
+                    a.ld * (a.alpha + 1));
+  const dim3 grid(static_cast<unsigned>(n_polys * a.nblk), a.beta);
+  basis_kernel<kMax, kDown><<<grid, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDown>
+int dispatch_basis(const BasisArgs& a, int64_t n_polys, void* stream) {
+  if (a.alpha <= 2) return launch_basis<2, kDown>(a, n_polys, stream);
+  if (a.alpha <= 4) return launch_basis<4, kDown>(a, n_polys, stream);
+  if (a.alpha <= 8) return launch_basis<8, kDown>(a, n_polys, stream);
+  if (a.alpha <= 16) return launch_basis<16, kDown>(a, n_polys, stream);
+  if (a.alpha <= 32) return launch_basis<32, kDown>(a, n_polys, stream);
+  return launch_basis<64, kDown>(a, n_polys, stream);
+}
+
+// The contraction out[o, l, c] = (sum_t a[t, o, l, c] b[t, o, l, c]) 2^-32
+// mod q_l over two term axes (t0, t1) and three outer axes (o0, o1, o2),
+// each operand with its own element strides (0: broadcast), N contiguous.
+struct Contraction {
+  int64_t nt[2], no[3];
+  int64_t at[2], bt[2], ao[3], bo[3], al, bl;
+};
+
+// One thread per (o, l, c); blockIdx.x = o (fastest), y = coefficient
+// block, z = limb. Operands canonical (< q < 2^29): a product is < 2^58,
+// kFold of them on a folded sum (< 2^61) stay below 2^64.
+__global__ void __launch_bounds__(kThreads)
+mul_accum_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
+                 int64_t* __restrict__ out, const uint32_t* __restrict__ mods,
+                 const Contraction s, int L, int n) {
+  const int64_t o = blockIdx.x;
+  const int l = blockIdx.z;
+  const int c = blockIdx.y * kThreads + threadIdx.x;
+  if (c >= n) return;
+  const int64_t o2 = o % s.no[2], o01 = o / s.no[2];
+  const int64_t o1 = o01 % s.no[1], o0 = o01 / s.no[1];
+  const int64_t* pa = a + o0 * s.ao[0] + o1 * s.ao[1] + o2 * s.ao[2] +
+                      l * s.al + c;
+  const int64_t* pb = b + o0 * s.bo[0] + o1 * s.bo[1] + o2 * s.bo[2] +
+                      l * s.bl + c;
+  const uint32_t q = mods[4 * l], qn = mods[4 * l + 1], bar = mods[4 * l + 2];
+  uint64_t acc = 0;
+  int since = 0;
+  for (int64_t t0 = 0; t0 < s.nt[0]; ++t0) {
+    const int64_t* ra = pa + t0 * s.at[0];
+    const int64_t* rb = pb + t0 * s.bt[0];
+#pragma unroll 4
+    for (int64_t t1 = 0; t1 < s.nt[1]; ++t1) {
+      acc += static_cast<uint64_t>(static_cast<uint32_t>(ra[t1 * s.at[1]])) *
+             static_cast<uint32_t>(rb[t1 * s.bt[1]]);
+      if (++since == kFold) {
+        acc = fold(acc, q, bar);
+        since = 0;
+      }
+    }
+  }
+  out[(o * L + l) * n + c] = mont_wide(acc, q, qn, bar);
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes, ops/basis_cuda.py). Every pointer
+// is device memory; stream is a cudaStream_t. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for arguments the kernels do
+// not take (the wrapper checks them first).
+
+// mod_up / decompose (down = 0) and ModDown (down = 1): x (n_polys, ls, N)
+// by its strides; xq (n_polys, ld, N) by its strides (ModDown, else null);
+// out (n_polys, beta, ld, N) contiguous; table as above.
+extern "C" int mkhe_basis(const void* x, long long sxp, long long sxl,
+                          const void* xq, long long sqp, long long sql,
+                          void* out, const void* table, long long n_polys,
+                          int ls, int alpha, int beta, int ld, int n,
+                          int down, void* stream) {
+  const int nblk = (n + kThreads - 1) / kThreads;
+  if (n_polys < 1 || n < 1 || ls < 1 || alpha < 1 || alpha > kMaxLimbs ||
+      ld < 1 || ld > kMaxLimbs || beta < 1 || beta > 65535 ||
+      (beta - 1) * alpha >= ls || n_polys * nblk > 0x7fffffffLL ||
+      (down && (beta != 1 || xq == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BasisArgs a{static_cast<const int64_t*>(x),
+                    static_cast<const int64_t*>(xq),
+                    static_cast<int64_t*>(out),
+                    static_cast<const uint32_t*>(table),
+                    sxp, sxl, sqp, sql, ls, alpha, beta, ld, n, nblk};
+  return down ? dispatch_basis<true>(a, n_polys, stream)
+              : dispatch_basis<false>(a, n_polys, stream);
+}
+
+// dims: nt0, nt1, no0, no1, no2, then a's strides at0, at1, ao0, ao1, ao2,
+// al, then b's bt0, bt1, bo0, bo1, bo2, bl; out (no0 no1 no2, L, N)
+// contiguous; mods (L, 4) u32: q, -q^-1 mod 2^32, floor(2^32 / q), 0.
+extern "C" int mkhe_mul_accum(const void* a, const void* b, void* out,
+                              const void* mods, const long long* dims,
+                              int L, int n, void* stream) {
+  Contraction s;
+  s.nt[0] = dims[0];
+  s.nt[1] = dims[1];
+  for (int i = 0; i < 3; ++i) s.no[i] = dims[2 + i];
+  for (int i = 0; i < 2; ++i) {
+    s.at[i] = dims[5 + i];
+    s.bt[i] = dims[11 + i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    s.ao[i] = dims[7 + i];
+    s.bo[i] = dims[13 + i];
+  }
+  s.al = dims[10];
+  s.bl = dims[16];
+  const int64_t n_out = s.no[0] * s.no[1] * s.no[2];
+  const int nblk = (n + kThreads - 1) / kThreads;
+  if (n < 1 || L < 1 || L > 65535 || nblk > 65535 || n_out < 1 ||
+      n_out > 0x7fffffffLL || s.nt[0] < 1 || s.nt[1] < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(n_out), nblk, L);
+  mul_accum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(a), static_cast<const int64_t*>(b),
+      static_cast<int64_t*>(out), static_cast<const uint32_t*>(mods), s, L,
+      n);
+  return static_cast<int>(cudaGetLastError());
+}

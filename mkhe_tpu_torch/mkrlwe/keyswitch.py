@@ -4,10 +4,11 @@ rotation and conjugation (port of mkhe_tpu/mkrlwe/keyswitch.py).
 
 Every per-party loop of the reference is a batched tensor op over a party
 axis. Digit and party contractions are sums of products reduced once
-(ops/modmath.mul_accum), and every result is canonical: the JAX package's
-lazy intermediates (< 8q) are not unique representatives, but they only
-ever feed an inverse NTT or a reduction, whose canonical outputs agree
-bit for bit with the ones here.
+(_reduce_qp: csrc/keyswitch.cu's contraction kernel on the card, over
+strided and broadcast views in place), and every result is canonical:
+the JAX package's lazy intermediates (< 8q) are not unique
+representatives, but they only ever feed an inverse NTT or a reduction,
+whose canonical outputs agree bit for bit with the ones here.
 
 As in the JAX package, the NTT-domain partial products are summed across
 parties before one ModDown (where the reference does a ModDown per party,
@@ -22,8 +23,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..ops import basis
-from ..ops import modmath as mm
+from ..ops import basis, basis_cuda
 from ..ops.ring import (Ring, coeff_perm, galois_element_conj,
                         galois_element_rot)
 from .params import Parameters
@@ -75,23 +75,21 @@ def slice_digits(params: Parameters, digits, level: int) -> torch.Tensor:
 # External products
 # ----------------------------------------------------------------------------
 
-def _accum_digits(digits, swk) -> list:
-    """The terms digits[..., b, :, :] * swk[..., b, :, :] of the digit sum
-    (to be reduced by _reduce_qp)."""
-    return [(digits[..., b, :, :], swk[..., b, :, :])
-            for b in range(digits.shape[-3])]
-
-
-def _reduce_qp(pairs: Sequence, ring_qp: Ring) -> torch.Tensor:
-    """(sum a * b) * 2^-32 mod q over QP, canonical."""
-    return mm.mul_accum(pairs, ring_qp.q[:, None], ring_qp.r_inv[:, None])
+def _reduce_qp(a, b, nterms: int, ring_qp: Ring) -> torch.Tensor:
+    """(sum_t a[t] * b[t]) * 2^-32 mod q over QP, canonical, the sum over
+    the first nterms axes of a and b (the rest broadcast): one launch of
+    csrc/keyswitch.cu's contraction on a CUDA tensor, the plain version
+    on a CPU tensor (basis_cuda.mul_accum)."""
+    return basis_cuda.mul_accum(
+        a, b, nterms, basis_cuda.limb_tables(ring_qp.moduli, ring_qp.device))
 
 
 def external_product_ntt(params: Parameters, digits, swk, level: int
                          ) -> torch.Tensor:
     """sum_b digits_b * swk_b, still NTT domain over QP, canonical.
     digits (..., beta, Lqp, N) plain NTT values; swk Montgomery NTT."""
-    return _reduce_qp(_accum_digits(digits, swk), params.ring_qp_at(level))
+    return _reduce_qp(digits.movedim(-3, 0), swk.movedim(-3, 0), 1,
+                      params.ring_qp_at(level))
 
 
 def mod_down_qp(params: Parameters, c_qp, level: int) -> torch.Tensor:
@@ -117,8 +115,7 @@ def _aggregate_keys(params: Parameters, digits, keys, level: int
     keyswitch.go:156-180). digits (k, beta, Lqp, N) -> (beta, Lqp, N).
     keys are b/d relinearization keys in DOUBLE-Montgomery form, so the
     one Montgomery reduction leaves the aggregate in Montgomery form."""
-    return _reduce_qp([(digits[i], keys[i]) for i in range(digits.shape[0])],
-                      params.ring_qp_at(level))
+    return _reduce_qp(digits, keys, 1, params.ring_qp_at(level))
 
 
 def parties_inner(digits) -> torch.Tensor:
@@ -132,11 +129,10 @@ def _sum_parties_ntt(params: Parameters, digits, swks, level: int
                      ) -> torch.Tensor:
     """sum_k sum_b digits[..., k, b] * swks[..., k, b] over QP, NTT
     domain, canonical. digits (..., k, beta, Lqp, N), swks broadcastable.
-    One reduction for all k * beta products (mul_accum keeps the int64
+    One reduction for all k * beta products (the contraction keeps its
     partial sums in range however many there are)."""
-    k, beta = digits.shape[-4], digits.shape[-3]
-    return _reduce_qp([(digits[..., i, b, :, :], swks[..., i, b, :, :])
-                       for i in range(k) for b in range(beta)],
+    return _reduce_qp(digits.movedim((-4, -3), (0, 1)),
+                      swks.movedim((-4, -3), (0, 1)), 2,
                       params.ring_qp_at(level))
 
 

@@ -10,6 +10,11 @@ correction, as in the reference's FastBasisExtender):
   - decompose_digits / decompose_ntt: the KKLSS gadget digit expansion;
   - div_round_by_last_moduli: CKKS rescaling.
 
+mod_up (and with it the digits of decompose_digits) and mod_down run on
+the hand-written kernels of csrc/keyswitch.cu for a CUDA tensor and their
+plain versions for a CPU tensor (ops/basis_cuda.py, which also holds the
+tables); the rescale stays int64 torch ops.
+
 Every output here is canonical. Where the JAX package returns lazy
 values (mod_up(lazy=True) < 4q), the canonical value is the same residue
 and meets the same bound, so outputs agree bit for bit once reduced.
@@ -17,51 +22,16 @@ and meets the same bound, so outputs agree bit for bit once reduced.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Tuple
 
-import numpy as np
 import torch
 
+from . import basis_cuda
 from . import modmath as mm
+from .basis_cuda import (ModUpTables, digit_tables, mod_down_tables,
+                         mod_up_tables)
 from .ring import Ring
-
-
-@dataclasses.dataclass(frozen=True)
-class ModUpTables:
-    """Tables for exact base conversion from src basis B to dst basis D."""
-    src_moduli: Tuple[int, ...]
-    dst_moduli: Tuple[int, ...]
-    qhat_inv_mont: torch.Tensor   # (Ls,) (B/b_i)^-1 mod b_i, Montgomery
-    qhat_dst_mont: torch.Tensor   # (Ls, Ld) B/b_i mod d_j, Montgomery
-    vq_dst: torch.Tensor          # (Ld, Ls+1) v*B mod d_j for v = 0..Ls
-    inv_b_f32: torch.Tensor       # (Ls,) float32 1/b_i
-
-
-@functools.lru_cache(maxsize=None)
-def mod_up_tables(src: Tuple[int, ...], dst: Tuple[int, ...],
-                  device: torch.device) -> ModUpTables:
-    B = 1
-    for b in src:
-        B *= b
-    ls, ld = len(src), len(dst)
-    qhat_inv = np.empty(ls, np.int64)
-    qhat_dst = np.empty((ls, ld), np.int64)
-    for i, bi in enumerate(src):
-        bhat = B // bi
-        qhat_inv[i] = mm.to_mont_host(pow(bhat % bi, -1, bi), bi)
-        for j, dj in enumerate(dst):
-            qhat_dst[i, j] = mm.to_mont_host(bhat % dj, dj)
-    vq = np.array([[(v * B) % dj for v in range(ls + 1)] for dj in dst],
-                  np.int64)
-    inv_b = (1.0 / np.array(src, np.float64)).astype(np.float32)
-    return ModUpTables(
-        src_moduli=src, dst_moduli=dst,
-        qhat_inv_mont=torch.from_numpy(qhat_inv).to(device),
-        qhat_dst_mont=torch.from_numpy(qhat_dst).to(device),
-        vq_dst=torch.from_numpy(vq).to(device),
-        inv_b_f32=torch.from_numpy(inv_b).to(device))
 
 
 def mod_up(x, src_ring: Ring, dst_ring: Ring, tables: ModUpTables
@@ -69,48 +39,17 @@ def mod_up(x, src_ring: Ring, dst_ring: Ring, tables: ModUpTables
     """Convert (..., Ls, N) in basis src (any u32 values) to canonical
     (..., Ld, N) in basis dst. The lifted integer equals the input
     representative in [0, B) up to a rare +-B (see the module docstring).
-
-    One exact path covers every Ls, including the JAX package's Ls = 2
-    Shoup fast path (basis.py:116-131), which yields the same residues."""
-    ls = len(tables.src_moduli)
-    y = mm.mont_mul(x, tables.qhat_inv_mont[:, None], src_ring.q[:, None],
-                    src_ring.r_inv[:, None])                  # canonical
-    # v = floor(sum_i y_i / b_i) in float32. The terms are added left to
-    # right one at a time: the order is part of the result (an off-by-one
-    # v shifts the output by B), and separate multiply and add ops keep
-    # the compiler from contracting them into an FMA.
-    yf = y.to(torch.float32) * tables.inv_b_f32[:, None]
-    vf = yf[..., 0, :]
-    for i in range(1, ls):
-        vf = vf + yf[..., i, :]
-    v = torch.floor(vf).to(torch.int64).clamp(0, ls)[..., None, :]
-    dq = dst_ring.q[:, None]
-    r = mm.mul_accum(((y[..., i:i + 1, :], tables.qhat_dst_mont[i][:, None])
-                      for i in range(ls)), dq, dst_ring.r_inv[:, None])
-    corr = torch.zeros_like(r)
-    for vi in range(1, ls + 1):
-        corr = torch.where(v == vi, tables.vq_dst[:, vi:vi + 1], corr)
-    return mm.sub_mod(r, corr, dq)
-
-
-@functools.lru_cache(maxsize=None)
-def mod_down_tables(qm: Tuple[int, ...], pm: Tuple[int, ...],
-                    device: torch.device) -> torch.Tensor:
-    """(Lq,) P^-1 mod q_j in Montgomery form."""
-    P = 1
-    for p in pm:
-        P *= p
-    return torch.tensor([mm.to_mont_host(pow(P % q, -1, q), q) for q in qm],
-                        dtype=torch.int64, device=device)
+    One launch of csrc/keyswitch.cu's basis kernel on a CUDA tensor, the
+    plain version on a CPU tensor (basis_cuda.mod_up)."""
+    return basis_cuda.mod_up(x, tables)
 
 
 def mod_down(xq, xp, ring_q: Ring, ring_p: Ring) -> torch.Tensor:
-    """Divide-and-round by P: canonical (xq, xp) in basis QP -> round(x/P)
-    in basis Q: (xq - ModUp_PtoQ(xp)) * P^-1 mod q."""
-    conv = mod_up(xp, ring_p, ring_q,
-                  mod_up_tables(ring_p.moduli, ring_q.moduli, ring_q.device))
-    pinv = mod_down_tables(ring_q.moduli, ring_p.moduli, ring_q.device)
-    return ring_q.mul_scalar_mont(ring_q.sub(xq, conv), pinv)
+    """Divide-and-round by P: (xq, xp) in basis QP -> round(x/P) in basis
+    Q: (xq - ModUp_PtoQ(xp)) * P^-1 mod q, canonical; one launch on a CUDA
+    tensor (basis_cuda.mod_down)."""
+    return basis_cuda.mod_down(
+        xq, xp, mod_down_tables(ring_q.moduli, ring_p.moduli, ring_q.device))
 
 
 # ----------------------------------------------------------------------------
@@ -124,19 +63,15 @@ def decompose_digits(x, src_ring: Ring, dst_ring: Ring, alpha: int
     beta = ceil(Ls/alpha), each in the full destination basis (QP),
     coefficient domain. For alpha == 1 digit d is the raw limb-d residue
     broadcast to every target limb (a view; values may exceed the target
-    modulus and are reduced by the NTT that follows)."""
+    modulus and are reduced by the NTT that follows). For alpha > 1 all
+    digits come from one launch of the basis kernel on a CUDA tensor
+    (basis_cuda.decompose)."""
     ls = x.shape[-2]
     if alpha == 1:
         return x[..., :, None, :].expand(
             *x.shape[:-2], ls, dst_ring.nlimbs, x.shape[-1])
-    outs = []
-    for lo in range(0, ls, alpha):
-        hi = min(lo + alpha, ls)
-        t = mod_up_tables(src_ring.moduli[lo:hi], dst_ring.moduli,
-                          dst_ring.device)
-        outs.append(mod_up(x[..., lo:hi, :], src_ring.take(lo, hi),
-                           dst_ring, t))
-    return torch.stack(outs, dim=-3)
+    return basis_cuda.decompose(x, digit_tables(
+        src_ring.moduli, dst_ring.moduli, alpha, dst_ring.device))
 
 
 def decompose_ntt(x, src_ring: Ring, dst_ring: Ring, alpha: int

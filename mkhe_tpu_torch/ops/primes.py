@@ -73,3 +73,12 @@ def primitive_root_2n(q: int, logn: int) -> int:
         if pow(psi, two_n // 2, q) == q - 1:
             return psi
     raise RuntimeError("no primitive root found")
+
+
+def bit_reverse(x: int, bits: int) -> int:
+    """x with its low `bits` bits in reverse order."""
+    r = 0
+    for _ in range(bits):
+        r = (r << 1) | (x & 1)
+        x >>= 1
+    return r

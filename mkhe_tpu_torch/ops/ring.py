@@ -303,6 +303,11 @@ class Ring:
 
     # -- pointwise ops (all on (..., L, N), canonical in [0, q)) ------------
 
+    def zero(self, *batch) -> torch.Tensor:
+        """The zero polynomial, (*batch, L, N), on the ring's device."""
+        return torch.zeros((*batch, self.nlimbs, self.n), dtype=torch.int64,
+                           device=self.device)
+
     def add(self, a, b):
         return mm.add_mod(a, b, self._c(self.q))
 
@@ -323,6 +328,10 @@ class Ring:
     def to_mont(self, a):
         return mm.to_mont(a, self._c(self.q), self._c(self.r_inv),
                           self._c(self.r2))
+
+    def from_mont(self, a):
+        """Montgomery-form a (any u32) -> canonical a * 2^-32 mod q."""
+        return mm.from_mont(a, self._c(self.q), self._c(self.r_inv))
 
     def mul_scalar_mont(self, a, s_mont):
         """Multiply by per-limb scalars in Montgomery form, shape (L,)."""

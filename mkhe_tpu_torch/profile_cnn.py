@@ -11,8 +11,9 @@ plain_forward, then prints, per warm inference of the staged pipeline
 
   latency   median ms from CUDA events, and from the host clock with a
             synchronize;
-  launches  NTT kernel launches (ops/ntt_cuda counters) and key-switched
-            rotations (count_rotations), mean over REPS inferences;
+  launches  NTT and key-switching kernel launches (ops/ntt_cuda and
+            ops/basis_cuda counters) and key-switched rotations
+            (count_rotations), mean over REPS inferences;
   ops       over the same inferences, the calls and the ms of each
             evaluator op the pipeline makes (op_profile: CUDA events in
             stream order, so an op's time includes the device's waits for
@@ -41,7 +42,7 @@ import torch
 from . import mkckks, mkrlwe
 from .mkrlwe import keyswitch as ksw
 from .models import cnn
-from .ops import ntt_cuda
+from .ops import basis_cuda, ntt_cuda
 from .profile_mult import host_ms, median_ms, trace
 
 SEED = 2024
@@ -259,13 +260,15 @@ def main(argv=None) -> None:
           f"median of {REPS}), {ms_host:.3f} ms (host clock + synchronize)",
           flush=True)
     ntt_cuda.reset_counters()
+    basis_cuda.reset_counters()
     with op_profile(s.ev) as ops:
         for _ in range(REPS):
             infer(s, ct_img)
-    launches = ntt_cuda.counters()
-    print(f"per inference, mean of {REPS}: NTT launches fwd "
-          f"{launches['ntt_fwd'] / REPS:g} inv {launches['ntt_inv'] / REPS:g}"
-          f", {ops['rotations'] / REPS:g} key-switched rotations; ops (CUDA "
+    launches = {**ntt_cuda.counters(), **basis_cuda.counters()}
+    print(f"per inference, mean of {REPS}: launches "
+          + ", ".join(f"{k} {launches[k] / REPS:g}" for k in (
+              "ntt_fwd", "ntt_inv", *basis_cuda.counters()))
+          + f", {ops['rotations'] / REPS:g} key-switched rotations; ops (CUDA "
           f"events in stream order) {sum(ops[n][1] for n in OPS) / REPS:.3f}"
           " ms in all", flush=True)
     for name in OPS:

@@ -8,7 +8,8 @@ encryptions, as bench.py does), then prints:
 
   latency   median ms of Evaluator.mul_relin_new, from CUDA events and
             from the host clock with a synchronize;
-  launches  NTT kernel launches per mult (ops/ntt_cuda counters);
+  launches  NTT and key-switching kernel launches per mult (ops/ntt_cuda
+            and ops/basis_cuda counters);
   steps     median ms (CUDA events) of each step mul_relin_new runs:
             hoisted_form (digit mod_ups, digit NTT), mul_and_relin from
             hoisted digits (key aggregation, external products, party
@@ -35,7 +36,7 @@ from torch.profiler import ProfilerActivity, profile as torch_profile
 
 from . import mkckks, mkrlwe
 from .mkrlwe import keyswitch as ksw
-from .ops import basis, ntt_cuda
+from .ops import basis, basis_cuda, ntt_cuda
 
 SEED = 2024
 PARTIES = 4   # the bench's op: the 4-party PN15QP880 mult
@@ -121,9 +122,11 @@ def profile(params, ev, ct0, ct1, rlk, reps: int) -> dict:
 
     mult()
     ntt_cuda.reset_counters()
+    basis_cuda.reset_counters()
     mult()
     out = {"ntt_fwd_launches": ntt_cuda.fwd_launches,
-           "ntt_inv_launches": ntt_cuda.inv_launches}
+           "ntt_inv_launches": ntt_cuda.inv_launches,
+           "keyswitch_launches": basis_cuda.counters()}
     out["mult_ms"] = median_ms(mult, reps, dev)
     out["mult_host_ms"] = host_ms(mult, reps, dev)
     steps = {
@@ -230,8 +233,8 @@ def main(argv=None) -> None:
           f"mult+relin+rescale {res['mult_ms']:.3f} ms (CUDA events, median "
           f"of {REPS}), {res['mult_host_ms']:.3f} ms (host clock + "
           f"synchronize); NTT launches per mult fwd "
-          f"{res['ntt_fwd_launches']} inv {res['ntt_inv_launches']}",
-          flush=True)
+          f"{res['ntt_fwd_launches']} inv {res['ntt_inv_launches']}, "
+          f"key-switching {res['keyswitch_launches']}", flush=True)
     for name, ms in res["steps_ms"].items():
         print(f"  step {name}: {ms:.3f} ms", flush=True)
     tr = trace(lambda: ev.mul_relin_new(ct0, ct1, rlk), 3, params.rlwe.device,

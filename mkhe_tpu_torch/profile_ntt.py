@@ -71,17 +71,17 @@ def bound(nbytes: int, int32_ops: int = 0, int8_ops: int = 0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_bound(name: str, x, tables, stages: int = 0, mul: bool = True):
-    """Bound of one launch of an NTT kernel on x (..., L, N) with its
-    tables: x read once and the output written once (int64), every table
-    and constant read once; 6 int32 operations a butterfly (three
-    products, three sums), 3 a coefficient for the Barrett reduction and 4
-    for each multiply by a per-coefficient or per-limb constant (twist,
-    untwist, N^-1); the split kernel's tail (ntt_tail, after the head in
-    ntt_split_fwd, before the DIT stages in ntt_split_inv): 16 u8
-    digit-plane products (2 x 128 int8 operations a coefficient each) and
-    the recombination of 7 partial sums (3 a term, 6 for the Montgomery
-    step).
+def kernel_work(name: str, x, tables, stages: int = 0, mul: bool = True):
+    """(bytes, int32 operations, int8 operations) of one launch of an NTT
+    kernel on x (..., L, N) with its tables: x read once and the output
+    written once (int64), every table and constant read once; 6 int32
+    operations a butterfly (three products, three sums), 3 a coefficient
+    for the Barrett reduction and 4 for each multiply by a per-coefficient
+    or per-limb constant (twist, untwist, N^-1); the split kernel's tail
+    (ntt_tail, after the head in ntt_split_fwd, before the DIT stages in
+    ntt_split_inv): 16 u8 digit-plane products (2 x 128 int8 operations a
+    coefficient each) and the recombination of 7 partial sums (3 a term,
+    6 for the Montgomery step).
     "ntt_variant" (the probe's transform, `stages` DIF stages, twiddle
     multiplies if `mul`): 6 a butterfly of a stage with a multiply (every
     stage but h = 1 when mul), 3 (the sums) a butterfly of one without, and
@@ -106,7 +106,13 @@ def kernel_bound(name: str, x, tables, stages: int = 0, mul: bool = True):
            + 4 * n}[name]
     if name in ("ntt_tail", "ntt_split_fwd", "ntt_split_inv"):
         int8 = ntt_cuda.FRAG_PLANES ** 2 * 2 * ntt_cuda.TAIL_LANES * n
-    return bound(nbytes, ops, int8)
+    return nbytes, ops, int8
+
+
+def kernel_bound(name: str, x, tables, stages: int = 0, mul: bool = True):
+    """bound() of kernel_work: the least ms an H100 could take for one
+    launch, and whether bytes or operations set it."""
+    return bound(*kernel_work(name, x, tables, stages, mul))
 
 
 def cuda_ms(fn, reps: int, inner: int = 10) -> float:

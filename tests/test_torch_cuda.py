@@ -1,7 +1,8 @@
 """The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, the split NTT's
 kernels in csrc/ntt_split.cu in their five modes, and the NTT cost probe's
-variant in csrc/ntt_variant.cu) against their plain PyTorch versions on
-the card, bit for bit; rotation, conjugation and the CNN pipeline on the
+variant in csrc/ntt_variant.cu) and the key-switching kernels
+(csrc/keyswitch.cu: mod_up with its digit axis, mod_down, mul_accum)
+against their plain PyTorch versions on the card, bit for bit; rotation, conjugation and the CNN pipeline on the
 card against the same calls on the CPU; and threefry's bits, every sampler
 and the PN14QP433_CNN CRS drawn on the card against the CPU's. Needs an
 NVIDIA GPU and nvcc; without a card every test skips. This file imports
@@ -950,3 +951,192 @@ def test_cnn_crs_matches_cpu(gen):
     assert sorted(card.rlwe.crs) == sorted(cpu.rlwe.crs)
     for idx, a in cpu.rlwe.crs.items():
         assert torch.equal(card.rlwe.crs[idx].cpu(), a)
+
+
+# ----------------------------------------------------------------------------
+# The key-switching kernels (csrc/keyswitch.cu, ops/basis_cuda.py)
+# ----------------------------------------------------------------------------
+
+def _ks_moduli(logn):
+    """28 Q, 4 P and 28 QMul moduli at logN (the PN15QP880 layout)."""
+    q = ntt_primes(logn, 28.9, 1) + ntt_primes(logn, 27.0, 27)
+    return q, ntt_primes(logn, 28.4, 4), ntt_primes(logn, 26.0, 28)
+
+
+def _with_boundary(x, src, alpha):
+    """x, with coefficients planted on the float32 v boundary where the
+    seed gave none; asserts that every digit that has such inputs
+    (basis_cuda.boundary_ys) has a coefficient there whose float32 v
+    differs from the exact floor (python ints where close)."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    has = [bc.boundary_ys(src[lo:lo + alpha]) is not None
+           for lo in range(0, len(src), alpha)]
+
+    def shown(x):
+        v32, exact = bc.v_floors(x, src, alpha)
+        per = (v32 != exact).any(axis=tuple(range(v32.ndim - 2)) + (-1,))
+        return all(p for p, h in zip(per, has) if h)
+
+    if not shown(x):
+        x = bc.plant_v_boundary(x, src, alpha, [1, x.shape[-1] - 1])
+    assert shown(x)
+    return x
+
+
+def _basis_cases(gen, logn, n):
+    """(name, wrapper, plain, args) of every basis-kernel call site at
+    logN (chunks of n coefficients): mod_up at Ls 1..4 into QP and 28 -> 28
+    (BFV), the digits at alpha 2 and 3 (28 limbs), ModDown from 4 and 2 P
+    limbs to 28, the Q and P parts sliced from one (.., 32, n) tensor."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    q, p, qmul = _ks_moduli(logn)
+    dev = torch.device("cuda")
+    cases = []
+    for ls in (1, 2, 3, 4, 28):
+        src, dst = q[:ls], (qmul if ls == 28 else q + p)
+        x = _with_boundary(_rand(gen, (3, ls, n), 1 << 32), src, ls)
+        t = bc.mod_up_tables(src, dst, dev)
+        cases.append((f"mod_up {ls}->{len(dst)}", bc.mod_up, bc.mod_up_plain,
+                      (x, t)))
+    for alpha in (2, 3):
+        x = _with_boundary(_rand(gen, (2, 28, n), 1 << 32), q, alpha)
+        t = bc.digit_tables(q, q + p, alpha, dev)
+        cases.append((f"decompose alpha {alpha}", bc.decompose,
+                      bc.decompose_plain, (x, t)))
+    for lp in (4, 2):
+        bound = torch.tensor(q + p[:lp], device=dev)[:, None]
+        c = _rand(gen, (3, 28 + lp, n), bound)
+        c[:, 28:] = _with_boundary(c[:, 28:], p[:lp], lp)
+        t = bc.mod_down_tables(q, p[:lp], dev)
+        cases.append((f"mod_down {lp}", bc.mod_down, bc.mod_down_plain,
+                      (c[:, :28], c[:, 28:], t)))
+    return cases
+
+
+@pytest.mark.parametrize("logn,shards", [(10, 1), (14, 1), (15, 1), (15, 2),
+                                         (15, 4)])
+def test_basis_kernels_match_plain(gen, logn, shards):
+    """mod_up, the digits and ModDown against their plain versions bit for
+    bit, the float32 v boundary included, at N and at the N/2 and N/4
+    chunks of the coefficient-sharded mult."""
+    for name, kern, plain, args in _basis_cases(gen, logn,
+                                                (1 << logn) // shards):
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), name
+
+
+def _contraction_cases(gen, n):
+    """(name, a, b, nterms) in each caller's layout over 32 limbs."""
+    k, beta, B, R = 4, 14, 2, 3
+    sh = (32, n)
+    d, key = _rand(gen, (k, beta, *sh), 1 << 28), _rand(gen, (k, beta, *sh),
+                                                        1 << 28)
+    db = _rand(gen, (k, B, beta, *sh), 1 << 28)
+    x, crs = _rand(gen, (B, beta, *sh), 1 << 28), _rand(gen, (R, beta, *sh),
+                                                        1 << 28)
+    dbi = db.movedim(0, -4)        # parties_inner: (B, k, beta, ...)
+    many = _rand(gen, (10, beta, *sh), 1 << 28)   # 140 terms
+    return [
+        ("parties", d, key, 1),
+        ("parties batched", db, key, 1),
+        ("digits, key broadcast", d.movedim(-3, 0), key[0].movedim(-3, 0),
+         1),
+        ("digits batched", db.movedim(-3, 0), x.movedim(-3, 0), 1),
+        ("rotations", d[None].movedim(-3, 0), crs[:, None].movedim(-3, 0),
+         1),
+        ("parties x digits", d.movedim((-4, -3), (0, 1)),
+         key.movedim((-4, -3), (0, 1)), 2),
+        ("parties x digits batched", dbi.movedim((-4, -3), (0, 1)),
+         key.movedim((-4, -3), (0, 1)), 2),
+        ("140 terms", many.movedim((-4, -3), (0, 1)),
+         many.flip(0).movedim((-4, -3), (0, 1)), 2),
+        ("limb-strided", d[..., 1:, :], key[..., :-1, :], 1),
+    ]
+
+
+@pytest.mark.parametrize("logn,shards", [(12, 1), (15, 2), (15, 4)])
+def test_mul_accum_kernel_matches_plain(gen, logn, shards):
+    """The contraction in every caller's layout (broadcast keys, batch
+    axes, parties_inner's strides, more than 64 terms, a limb-sliced view)
+    against its plain version bit for bit, on moduli just below 2^29."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    mods = ntt_primes(logn, 28.99, 32)
+    for name, a, b, nt in _contraction_cases(gen, (1 << logn) // shards):
+        L = a.shape[-2]
+        t = bc.limb_tables(mods[:L], torch.device("cuda"))
+        q = t.q[:, None]
+        a, b = a % q, b % q
+        if name == "140 terms":   # residues just below q: the sum needs folds
+            a, b = q - 1 - a % 1024, q - 1 - b % 1024
+        got, want = bc.mul_accum(a, b, nt, t), bc.mul_accum_plain(a, b, nt, t)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), name
+
+
+def test_keyswitch_kernels_count_and_raise(gen):
+    """A CUDA tensor reaches each kernel (one count a launch, none for a
+    plain call); shapes, types and devices the kernels do not take raise."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    q, p, _ = _ks_moduli(10)
+    dev = torch.device("cuda")
+    x = _rand(gen, (2, 28, 1 << 10), 1 << 32)
+    up, dig = bc.mod_up_tables(q[:2], q + p, dev), bc.digit_tables(
+        q, q + p, 2, dev)
+    down, lt = bc.mod_down_tables(q, p, dev), bc.limb_tables(q + p, dev)
+    c = _rand(gen, (2, 32, 1 << 10), torch.tensor(q + p, device=dev)[:, None])
+    bc.reset_counters()
+    bc.mod_up(x[:, :2], up)
+    bc.decompose(x, dig)
+    bc.mod_down(c[:, :28], c[:, 28:], down)
+    bc.mul_accum(c, c, 1, lt)
+    bc.mod_up_plain(x[:, :2], up)
+    bc.mul_accum_plain(c, c, 1, lt)
+    assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1}
+    with pytest.raises(ValueError):
+        bc.mod_up(x[:, :3], up)
+    with pytest.raises(TypeError):
+        bc.decompose(x.to(torch.int32), dig)
+    with pytest.raises(ValueError):
+        bc.mod_up(x[:, :2], bc.mod_up_tables(q[:2], q + p, torch.device(
+            "cpu")))
+    with pytest.raises(ValueError):
+        bc.mod_down(c[:1, :28], c[:, 28:], down)
+    with pytest.raises(ValueError):
+        bc.mul_accum(c, c[..., :16], 1, lt)
+    # four outer axes that step differently in the two operands
+    y = _rand(gen, (1, 2, 3, 2, 3, 32, 8), 1 << 28)
+    z = _rand(gen, (1, 3, 2, 3, 2, 32, 8), 1 << 28).permute(0, 2, 1, 4, 3,
+                                                            5, 6)
+    with pytest.raises(ValueError):
+        bc.mul_accum(y, z, 1, lt)
+    assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1}
+
+
+@pytest.mark.parametrize("kernel", ["mod_up", "decompose", "mod_down",
+                                    "mul_accum"])
+def test_keyswitch_wrappers_capture_in_default_mode(gen, kernel):
+    """Each key-switching wrapper, warmed up once, captures into a CUDA
+    graph in the default (global) capture error mode, and the replay
+    equals eager."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    q, p, _ = _ks_moduli(14)
+    dev = torch.device("cuda")
+    x = _rand(gen, (2, 28, 1 << 14), 1 << 32)
+    c = _rand(gen, (2, 32, 1 << 14), torch.tensor(q + p, device=dev)[:, None])
+    call = {"mod_up": lambda: bc.mod_up(x[:, :2], bc.mod_up_tables(
+                q[:2], q + p, dev)),
+            "decompose": lambda: bc.decompose(x, bc.digit_tables(
+                q, q + p, 2, dev)),
+            "mod_down": lambda: bc.mod_down(c[:, :28], c[:, 28:],
+                                            bc.mod_down_tables(q, p, dev)),
+            "mul_accum": lambda: bc.mul_accum(
+                c[None].expand(3, -1, -1, -1), c[None], 1,
+                bc.limb_tables(q + p, dev))}[kernel]
+    want = call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        got = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
