@@ -70,13 +70,16 @@ Phases, one line each, then two JSON lines:
               modelOwner; three requests, each a fresh synthetic 28x28
               image encrypted under dataOwner -> the staged pipeline
               (conv -> square -> fc1 -> square -> fc2) timed with CUDA
-              events, per layer too -> decrypt, each logit within
+              events -> decrypt, each logit within
               rtol = atol = 5e-3 of plain_forward and the same argmax;
               the NTT and key-switching launch counters must grow;
               a batched hoisted rotation over fc1's 7 indices equal to 7
               single ones bit for bit, and a conjugation that decrypts to
               the conjugate; the key-switched rotations of the requests
-              are counted (profile_cnn.count_rotations).
+              are counted (profile_cnn.count_rotations); then one more
+              inference traced with the spans on (profile_cnn.op_profile):
+              the device ms under the layers' spans cnn.conv, cnn.fc1 and
+              cnn.fc2.
   7. fused    the runtime tier at full width (fuse.py, the CNN's
               build_fused_inference, the batched mults), every replay on
               inputs that are not the capture's: CKKS PN15QP880, 4
@@ -707,19 +710,7 @@ def phase_cnn(params) -> dict:
         img = profile_cnn.image(lo, SEED + k)
         ct_img = s.encrypt_image(img)
         torch.cuda.synchronize()
-        events = {}
-
-        def mark(name):
-            events[name] = torch.cuda.Event(enable_timing=True)
-            events[name].record()
-
-        mark("start")
-        out = profile_cnn.infer(s, ct_img, marks=mark)
-        mark("end")
-        torch.cuda.synchronize()
-        ms = {name: events[a].elapsed_time(events[b]) for name, a, b in (
-            ("total", "start", "end"), ("conv", "start", "conv"),
-            ("fc1", "conv", "fc1"), ("fc2", "fc1", "end"))}
+        out, ms = _timed(lambda: profile_cnn.infer(s, ct_img))
         logits = s.logits(out)
         want = cnn.plain_forward(img, *s.weights, lo)
         if not (out.ids == profile_cnn.USERS and logits.shape == want.shape
@@ -751,7 +742,9 @@ def phase_cnn(params) -> dict:
     if not math.log2(max(conj_err, 1e-300)) <= (
             -math.log2(params.scale) + params.logslots + 12):
         raise AssertionError(f"conjugation error {conj_err}")
-    layers = {name: [round(ms[name], 3) for ms, _, _, _ in runs]
+    with profile_cnn.op_profile(params.rlwe.device) as spans:
+        profile_cnn.infer(s, ct)
+    layers = {name: round(spans[f"cnn.{name}"][1], 3)
               for name in ("conv", "fc1", "fc2")}
     print(f"[6 cnn] PN14QP433_CNN logN {params.logn} L {params.max_level + 1}"
           f" + {params.rlwe.pcount} P, alpha {params.rlwe.alpha}, scale "
@@ -761,9 +754,10 @@ def phase_cnn(params) -> dict:
           f"; keygen {s.keygen_s:.2f} s ({len(s.rtk.value['dataOwner'])} "
           f"rotation keys per party), model encryption and key stacks "
           f"{s.model_s:.2f} s; ms per inference "
-          f"{[round(ms['total'], 3) for ms, _, _, _ in runs]} (first, then "
-          f"warm), per layer {layers}; key-switched rotations counted in the "
-          f"three requests {rot['rotations']}; max logit err "
+          f"{[round(ms, 3) for ms, _, _, _ in runs]} (first, then "
+          f"warm), device ms per layer (traced) {layers}; key-switched "
+          f"rotations counted in the three requests {rot['rotations']}; "
+          f"max logit err "
           f"{max(e for _, e, _, _ in runs):.3g} (rtol = atol = 5e-3), argmax "
           f"equal; batched hoisted rotation over {len(idxs)} indices "
           f"bit-identical to single ones; conjugation err {conj_err:.3g}; "

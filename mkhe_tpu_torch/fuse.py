@@ -58,6 +58,7 @@ import torch
 from . import mkbfv, mkckks
 from .mkrlwe.elements import Ciphertext as RCt
 from .ops import ntt_cuda
+from .utils.profiling import span
 
 
 class _Record:
@@ -155,11 +156,14 @@ def _table_leaves(tables) -> list:
 class Fused:
     """fn of fuse(): fn(p_arg, tables, cts) runs the pipeline, one graph
     replay on the card. `graph` is the torch.cuda.CUDAGraph, `capture_s`
-    the host seconds its capture took and `launches` the NTT kernel
+    the host seconds its capture took, `launches` the NTT kernel
     launches captured into it, per kernel (ntt_cuda.counters; a replay
     runs them again without the wrapper, so the counters do not see
-    replays); None, 0.0 and {} on the CPU. fuse_chained's step graph adds
-    to capture_s and launches."""
+    replays) and `replays` the graph replays run, fuse_chained's step
+    graph's included; None, 0.0, {} and 0 on the CPU. fuse_chained's step
+    graph adds to capture_s and launches. A call is the span fuse.call
+    (copy-in, replay, clone-out) and its replays the span fuse.replay;
+    spans open during a capture are not replayed."""
 
     def __init__(self, make_ev, pipeline, p_arg, tables, spec, leaves):
         self.make_ev, self.pipeline = make_ev, pipeline
@@ -167,6 +171,7 @@ class Fused:
         self.device = p_arg.device
         self.cuda = self.device.type == "cuda"
         self.graph, self.capture_s, self.launches = None, 0.0, {}
+        self.replays = 0
         if self.cuda:
             self.static_in = [t.clone() for t in leaves]
             # the recording pass was the warm-up
@@ -238,23 +243,27 @@ class Fused:
     # -- calls --------------------------------------------------------------
 
     def __call__(self, p_arg, tables, cts):
-        leaves = self._leaves(p_arg, tables, cts)
-        if not self.cuda:
-            return self._run(_unflatten(self.spec, iter(leaves)), tables)
-        self._load(leaves)
-        self.graph.replay()
-        return self._outputs()
+        with span("fuse.call"):
+            leaves = self._leaves(p_arg, tables, cts)
+            if not self.cuda:
+                return self._run(_unflatten(self.spec, iter(leaves)), tables)
+            self._load(leaves)
+            with span("fuse.replay"):
+                self.graph.replay()
+            self.replays += 1
+            return self._outputs()
 
     def chained(self, chain):
         """run_k of fuse_chained (below)."""
         if not self.cuda:
             def run_k(p_arg, tables, cts, k):
-                c = _unflatten(self.spec,
-                               iter(self._leaves(p_arg, tables, cts)))
-                for _ in range(k):
-                    c = _unflatten(self.spec, iter(self._chain_leaves(
-                        self._chain_step(chain, c, tables))))
-                return self._run(c, tables)
+                with span("fuse.call"):
+                    c = _unflatten(self.spec,
+                                   iter(self._leaves(p_arg, tables, cts)))
+                    for _ in range(k):
+                        c = _unflatten(self.spec, iter(self._chain_leaves(
+                            self._chain_step(chain, c, tables))))
+                    return self._run(c, tables)
             run_k.fused = self
             return run_k
 
@@ -265,11 +274,14 @@ class Fused:
         step_graph = self._capture(step, warm=True)[0]
 
         def run_k(p_arg, tables, cts, k):
-            self._load(self._leaves(p_arg, tables, cts))
-            for _ in range(k):
-                step_graph.replay()
-            self.graph.replay()
-            return self._outputs()
+            with span("fuse.call"):
+                self._load(self._leaves(p_arg, tables, cts))
+                with span("fuse.replay"):
+                    for _ in range(k):
+                        step_graph.replay()
+                    self.graph.replay()
+                self.replays += k + 1
+                return self._outputs()
 
         run_k.fused = self
         return run_k

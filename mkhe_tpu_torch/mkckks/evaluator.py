@@ -22,6 +22,7 @@ from ..mkrlwe import keyswitch as ksw
 from ..mkrlwe.elements import Ciphertext as RCt, union_ids
 from ..ops import basis
 from ..ops import modmath as mm
+from ..utils.profiling import span
 from .params import Parameters
 from .elements import Ciphertext
 
@@ -140,8 +141,9 @@ class Evaluator:
         scale, nb = self._rescale_count(ct.scale, ct.level, min_scale)
         if nb == 0:
             return ct
-        data = basis.div_round_by_last_moduli(
-            ct.ct.data, self.params.rlwe.ring_q_at(ct.level), nb)
+        with span("ckks.rescale"):
+            data = basis.div_round_by_last_moduli(
+                ct.ct.data, self.params.rlwe.ring_q_at(ct.level), nb)
         return Ciphertext(ct=RCt(ids=ct.ids, data=data), scale=scale)
 
     def _rescale_count(self, scale: float, level: int,
@@ -160,19 +162,25 @@ class Evaluator:
     # -- multiplication -----------------------------------------------------
 
     def hoisted_form(self, ct: Ciphertext) -> mkrlwe.HoistedCiphertext:
-        return ksw.hoisted_form(self.params.rlwe, ct.ct)
+        with span("ksw.decompose"):
+            return ksw.hoisted_form(self.params.rlwe, ct.ct)
 
     def mul_relin_new(self, ct0: Ciphertext, ct1: Ciphertext, rlk_set
                       ) -> Ciphertext:
-        if ct0 is ct1:
-            h = self.hoisted_form(ct0)
-            return self.mul_relin_hoisted_new(ct0, ct1, h, h, rlk_set)
-        return self.mul_relin_hoisted_new(
-            ct0, ct1, self.hoisted_form(ct0), self.hoisted_form(ct1),
-            rlk_set)
+        with span("ckks.mul_relin"):
+            rp = self.params.rlwe
+            with span("ksw.decompose"):
+                h0 = ksw.hoisted_form(rp, ct0.ct)
+                h1 = h0 if ct0 is ct1 else ksw.hoisted_form(rp, ct1.ct)
+            return self._mul_relin_hoisted(ct0, ct1, h0, h1, rlk_set)
 
     def mul_relin_hoisted_new(self, ct0: Ciphertext, ct1: Ciphertext,
                               h0, h1, rlk_set) -> Ciphertext:
+        with span("ckks.mul_relin"):
+            return self._mul_relin_hoisted(ct0, ct1, h0, h1, rlk_set)
+
+    def _mul_relin_hoisted(self, ct0: Ciphertext, ct1: Ciphertext, h0, h1,
+                           rlk_set) -> Ciphertext:
         square = ct0 is ct1 or (ct0.ct.data is ct1.ct.data
                                 and ct0.ids == ct1.ids)
         ct0a, ct1a, level = self._align_levels(ct0, ct1)
@@ -189,52 +197,56 @@ class Evaluator:
         party axis, (k+1, B, L, N), so each NTT launch covers B times the
         polynomials of one mult. Returns a list of Ciphertexts, each
         bit-identical to mul_relin_new on its pair."""
-        cts0, cts1 = list(cts0), list(cts1)
-        if len(cts0) != len(cts1) or not cts0:
-            raise ValueError("need equal-length non-empty batches")
-        for lst in (cts0, cts1):
-            if any(c.ids != lst[0].ids or c.level != lst[0].level
-                   or c.scale != lst[0].scale for c in lst):
-                raise ValueError("batch must share (ids, level, scale); "
-                                 "split the batch")
-        level = min(cts0[0].level, cts1[0].level)
-        ids = union_ids(cts0[0].ids, cts1[0].ids)
-        # the rescale amount, once for the batch (one scale)
-        scale, nb = self._rescale_count(cts0[0].scale * cts1[0].scale,
-                                        level)
-        data0, data1 = (torch.stack([c.ct.data[..., :level + 1, :]
-                                     for c in cts], dim=1)
-                        for cts in (cts0, cts1))
-        rp = self.params.rlwe
-        out = ksw.mul_and_relin(rp, RCt(ids=cts0[0].ids, data=data0),
-                                RCt(ids=cts1[0].ids, data=data1),
-                                rlk_set.stacked(ids), level).data
-        if nb:
-            out = basis.div_round_by_last_moduli(out, rp.ring_q_at(level),
-                                                 nb)
-        return [Ciphertext(ct=RCt(ids=ids, data=d), scale=scale)
-                for d in out.movedim(1, 0).contiguous()]
+        with span("ckks.mul_relin"):
+            cts0, cts1 = list(cts0), list(cts1)
+            if len(cts0) != len(cts1) or not cts0:
+                raise ValueError("need equal-length non-empty batches")
+            for lst in (cts0, cts1):
+                if any(c.ids != lst[0].ids or c.level != lst[0].level
+                       or c.scale != lst[0].scale for c in lst):
+                    raise ValueError("batch must share (ids, level, scale); "
+                                     "split the batch")
+            level = min(cts0[0].level, cts1[0].level)
+            ids = union_ids(cts0[0].ids, cts1[0].ids)
+            # the rescale amount, once for the batch (one scale)
+            scale, nb = self._rescale_count(cts0[0].scale * cts1[0].scale,
+                                            level)
+            data0, data1 = (torch.stack([c.ct.data[..., :level + 1, :]
+                                         for c in cts], dim=1)
+                            for cts in (cts0, cts1))
+            rp = self.params.rlwe
+            out = ksw.mul_and_relin(rp, RCt(ids=cts0[0].ids, data=data0),
+                                    RCt(ids=cts1[0].ids, data=data1),
+                                    rlk_set.stacked(ids), level).data
+            if nb:
+                with span("ckks.rescale"):
+                    out = basis.div_round_by_last_moduli(
+                        out, rp.ring_q_at(level), nb)
+            return [Ciphertext(ct=RCt(ids=ids, data=d), scale=scale)
+                    for d in out.movedim(1, 0).contiguous()]
 
     def mul_relin_sum_new(self, pairs, rlk_set) -> Ciphertext:
         """Inner product sum_i a_i * b_i with lazy relinearization
         (ksw.mul_and_relin_sum): one deferred ModDown / t-path for the
         whole sum instead of one per term, then one rescale. pairs: (ct0,
         ct1) or (ct0, ct1, h0, h1), all with the same product scale."""
-        pairs = [p if len(p) == 4 else (p[0], p[1], None, None)
-                 for p in pairs]
-        level = min(min(p[0].level, p[1].level) for p in pairs)
-        scale = pairs[0][0].scale * pairs[0][1].scale
-        rpairs = []
-        for c0, c1, h0, h1 in pairs:
-            if c0.scale * c1.scale != scale:
-                raise ValueError("pairs must share the product scale")
-            c0a, c1a, _ = self._align_levels(c0, c1)
-            rpairs.append((mkrlwe.drop_level(c0a.ct, c0a.level - level),
-                           mkrlwe.drop_level(c1a.ct, c1a.level - level),
-                           h0, h1))
-        rlk = rlk_set.stacked(union_ids(rpairs[0][0].ids, rpairs[0][1].ids))
-        out = ksw.mul_and_relin_sum(self.params.rlwe, rpairs, rlk, level)
-        return self.rescale(Ciphertext(ct=out, scale=scale))
+        with span("ckks.mul_relin"):
+            pairs = [p if len(p) == 4 else (p[0], p[1], None, None)
+                     for p in pairs]
+            level = min(min(p[0].level, p[1].level) for p in pairs)
+            scale = pairs[0][0].scale * pairs[0][1].scale
+            rpairs = []
+            for c0, c1, h0, h1 in pairs:
+                if c0.scale * c1.scale != scale:
+                    raise ValueError("pairs must share the product scale")
+                c0a, c1a, _ = self._align_levels(c0, c1)
+                rpairs.append((mkrlwe.drop_level(c0a.ct, c0a.level - level),
+                               mkrlwe.drop_level(c1a.ct, c1a.level - level),
+                               h0, h1))
+            rlk = rlk_set.stacked(union_ids(rpairs[0][0].ids,
+                                            rpairs[0][1].ids))
+            out = ksw.mul_and_relin_sum(self.params.rlwe, rpairs, rlk, level)
+            return self.rescale(Ciphertext(ct=out, scale=scale))
 
     def mul_ptxt_new(self, ct: Ciphertext, pt, pt_scale: float
                      ) -> Ciphertext:
@@ -244,15 +256,16 @@ class Evaluator:
         array (copied to the device on every call: pass a tensor where it
         is reused, and a tensor on the params' device to a captured
         pipeline, fuse.py)."""
-        level = ct.level
-        ring = self.params.rlwe.ring_q_at(level)
-        if not isinstance(pt, torch.Tensor):
-            pt = torch.from_numpy(np.asarray(pt).astype(np.int64))
-        pt = pt[..., :level + 1, :].to(ring.device)
-        pm = ring.to_mont(ring.ntt(pt))
-        data = ring.intt(ring.mul_mont(ring.ntt(ct.ct.data), pm[None]))
-        return self.rescale(Ciphertext(ct=RCt(ids=ct.ids, data=data),
-                                       scale=ct.scale * pt_scale))
+        with span("ckks.mul_ptxt"):
+            level = ct.level
+            ring = self.params.rlwe.ring_q_at(level)
+            if not isinstance(pt, torch.Tensor):
+                pt = torch.from_numpy(np.asarray(pt).astype(np.int64))
+            pt = pt[..., :level + 1, :].to(ring.device)
+            pm = ring.to_mont(ring.ntt(pt))
+            data = ring.intt(ring.mul_mont(ring.ntt(ct.ct.data), pm[None]))
+            return self.rescale(Ciphertext(ct=RCt(ids=ct.ids, data=data),
+                                           scale=ct.scale * pt_scale))
 
     # -- rotations ----------------------------------------------------------
 
@@ -270,8 +283,9 @@ class Evaluator:
         """Rotate the slots left by rot_idx: in one key switch if rot_idx
         has a CRS, else by its power-of-two steps (ksw.rotation_steps,
         which raises KeyError if one of them has no CRS either)."""
-        for k in ksw.rotation_steps(self.params.rlwe, rot_idx):
-            ct = self._rotate(ct, k, rtk_set, None)
+        with span("ckks.rotate"):
+            for k in ksw.rotation_steps(self.params.rlwe, rot_idx):
+                ct = self._rotate(ct, k, rtk_set, None)
         return ct
 
     def _check_crs(self, rot_idx: int) -> None:
@@ -286,7 +300,8 @@ class Evaluator:
         if rot_idx == 0:
             return ct
         self._check_crs(rot_idx)
-        return self._rotate(ct, rot_idx, rtk_set, h)
+        with span("ckks.rotate"):
+            return self._rotate(ct, rot_idx, rtk_set, h)
 
     def rotate_hoisted_many_new(self, ct: Ciphertext, rot_idxs, h,
                                 rtk_set) -> list:
@@ -298,9 +313,11 @@ class Evaluator:
             raise ValueError("rotation by 0 is the identity; drop it")
         for i in idxs:
             self._check_crs(i)
-        rtk_multi = torch.stack([rtk_set.stacked(ct.ids, i) for i in idxs])
-        data = ksw.rotate_hoisted_batched(self.params.rlwe, ct.ct, idxs,
-                                          rtk_multi, h)
+        with span("ckks.rotate"):
+            rtk_multi = torch.stack([rtk_set.stacked(ct.ids, i)
+                                     for i in idxs])
+            data = ksw.rotate_hoisted_batched(self.params.rlwe, ct.ct, idxs,
+                                              rtk_multi, h)
         return [Ciphertext(ct=RCt(ids=ct.ids, data=data[r]),
                            scale=ct.scale) for r in range(len(idxs))]
 

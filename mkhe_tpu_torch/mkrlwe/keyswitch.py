@@ -26,6 +26,7 @@ import torch
 from ..ops import basis, basis_cuda
 from ..ops.ring import (Ring, coeff_perm, galois_element_conj,
                         galois_element_rot)
+from ..utils.profiling import span
 from .params import Parameters
 from .elements import Ciphertext, HoistedCiphertext, union_ids
 
@@ -163,7 +164,8 @@ def _digits(params: Parameters, h: Optional[HoistedCiphertext], d,
     fresh decomposition of d[1:]."""
     if h is not None:
         return slice_digits(params, h.digits, level)
-    return decompose(params, d[1:], level)
+    with span("ksw.decompose"):
+        return decompose(params, d[1:], level)
 
 
 def _tensor_ntt(ring_q: Ring, nt0, nt1, ids0, ids1, ids) -> torch.Tensor:
@@ -236,7 +238,8 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
             and d0.shape == d1.shape):
         # distinct operands: decompose both in one pass (one NTT launch
         # over 2k parties instead of two over k)
-        both = decompose(params, torch.cat([d0[1:], d1[1:]]), level)
+        with span("ksw.decompose"):
+            both = decompose(params, torch.cat([d0[1:], d1[1:]]), level)
         k0 = d0.shape[0] - 1
         dec0, dec1 = both[:k0], both[k0:]
     else:
@@ -248,30 +251,38 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
 
     (d_keys, b_keys, v_keys, u_key), i0, i1 = _relin_keys(
         params, rlk_stacked, ids, ids0, ids1, level, u_key)
-    x = _aggregate_keys(params, dec0, d_keys, level)
-    y = _aggregate_keys(params, dec1, b_keys, level)
+    with span("ksw.aggregate"):
+        x = _aggregate_keys(params, dec0, d_keys, level)
+        y = _aggregate_keys(params, dec1, b_keys, level)
 
-    nt0 = ring_q.ntt(d0)
-    nt1 = nt0 if square else ring_q.ntt(d1)
-    out_arr = ring_q.intt(_tensor_ntt(ring_q, nt0, nt1, ids0, ids1, ids))
+    with span("ksw.tensor"):
+        nt0 = ring_q.ntt(d0)
+        nt1 = nt0 if square else ring_q.ntt(d1)
+        out_arr = ring_q.intt(_tensor_ntt(ring_q, nt0, nt1, ids0, ids1, ids))
 
     # out_j += Ext(ct1_j, x); t_i = Ext(ct0_i, y): one batched
     # iNTT + ModDown for both (poly-wise, so bit-identical).
-    z1_ntt = external_product_ntt(params, dec1, x, level)
-    t_ntt = external_product_ntt(params, dec0, y, level)
+    with span("ksw.external_product"):
+        z1_ntt = external_product_ntt(params, dec1, x, level)
+        t_ntt = external_product_ntt(params, dec0, y, level)
     k1 = len(ids1)
-    zt = mod_down_qp(params, torch.cat([z1_ntt, t_ntt]), level)
-    z1, t = zt[:k1], zt[k1:]                       # (k1|k0, Lq, N)
-    out_arr[i1] = ring_q.add(out_arr[i1], z1)
+    with span("ksw.mod_down"):
+        zt = mod_down_qp(params, torch.cat([z1_ntt, t_ntt]), level)
+        z1, t = zt[:k1], zt[k1:]                   # (k1|k0, Lq, N)
+        out_arr[i1] = ring_q.add(out_arr[i1], z1)
 
     # out_0 += Ext(Dec t_i, v_i); out_i += Ext(Dec t_i, u): again one
     # batched iNTT + ModDown for the v-sum and the u products.
-    dec_t = decompose(params, t, level)            # (k0, beta, Lqp, N)
-    v_ntt = _sum_parties_ntt(params, parties_inner(dec_t), v_keys, level)
-    zu_ntt = external_product_ntt(params, dec_t, u_key, level)
-    vz = mod_down_qp(params, torch.cat([v_ntt[None], zu_ntt]), level)
-    out_arr[0] = ring_q.add(out_arr[0], vz[0])
-    out_arr[i0] = ring_q.add(out_arr[i0], vz[1:])
+    with span("ksw.decompose"):
+        dec_t = decompose(params, t, level)        # (k0, beta, Lqp, N)
+    with span("ksw.v_sum"):
+        v_ntt = _sum_parties_ntt(params, parties_inner(dec_t), v_keys, level)
+    with span("ksw.external_product"):
+        zu_ntt = external_product_ntt(params, dec_t, u_key, level)
+    with span("ksw.mod_down"):
+        vz = mod_down_qp(params, torch.cat([v_ntt[None], zu_ntt]), level)
+        out_arr[0] = ring_q.add(out_arr[0], vz[0])
+        out_arr[i0] = ring_q.add(out_arr[i0], vz[1:])
 
     return Ciphertext(ids=ids, data=out_arr)
 
@@ -311,14 +322,17 @@ def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int,
             dec1 = dec0
         else:
             dec1 = _digits(params, h1, d1, level)
-        x = _aggregate_keys(params, dec0, d_keys, level)
-        y = _aggregate_keys(params, dec1, b_keys, level)
+        with span("ksw.aggregate"):
+            x = _aggregate_keys(params, dec0, d_keys, level)
+            y = _aggregate_keys(params, dec1, b_keys, level)
 
-        nt0 = ring_q.ntt(d0)
-        nt1 = nt0 if square else ring_q.ntt(d1)
-        tensor = _tensor_ntt(ring_q, nt0, nt1, ids0, ids1, ids)
-        z1 = external_product_ntt(params, dec1, x, level)
-        t = external_product_ntt(params, dec0, y, level)
+        with span("ksw.tensor"):
+            nt0 = ring_q.ntt(d0)
+            nt1 = nt0 if square else ring_q.ntt(d1)
+            tensor = _tensor_ntt(ring_q, nt0, nt1, ids0, ids1, ids)
+        with span("ksw.external_product"):
+            z1 = external_product_ntt(params, dec1, x, level)
+            t = external_product_ntt(params, dec0, y, level)
         if out_ntt is None:
             out_ntt, z1_qp, t_qp = tensor, z1, t
         else:
@@ -326,14 +340,24 @@ def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int,
             z1_qp = ring_qp.add(z1_qp, z1)
             t_qp = ring_qp.add(t_qp, t)
 
-    out_arr = ring_q.intt(out_ntt)
-    out_arr[i1] = ring_q.add(out_arr[i1], mod_down_qp(params, z1_qp, level))
-    dec_t = decompose(params, mod_down_qp(params, t_qp, level), level)
-    v_sum = mod_down_qp(params, _sum_parties_ntt(params, dec_t, v_keys,
-                                                 level), level)
-    out_arr[0] = ring_q.add(out_arr[0], v_sum)
-    zu = external_product(params, dec_t, u_key, level)
-    out_arr[i0] = ring_q.add(out_arr[i0], zu)
+    with span("ksw.tensor"):
+        out_arr = ring_q.intt(out_ntt)
+    with span("ksw.mod_down"):
+        z1 = mod_down_qp(params, z1_qp, level)
+        out_arr[i1] = ring_q.add(out_arr[i1], z1)
+        t = mod_down_qp(params, t_qp, level)
+    with span("ksw.decompose"):
+        dec_t = decompose(params, t, level)
+    with span("ksw.v_sum"):
+        v_ntt = _sum_parties_ntt(params, dec_t, v_keys, level)
+    with span("ksw.mod_down"):
+        v_sum = mod_down_qp(params, v_ntt, level)
+        out_arr[0] = ring_q.add(out_arr[0], v_sum)
+    with span("ksw.external_product"):
+        zu_ntt = external_product_ntt(params, dec_t, u_key, level)
+    with span("ksw.mod_down"):
+        zu = mod_down_qp(params, zu_ntt, level)
+        out_arr[i0] = ring_q.add(out_arr[i0], zu)
     return Ciphertext(ids=ids, data=out_arr)
 
 
@@ -348,12 +372,15 @@ def _switch_parties(params: Parameters, c0, dec, swks, a, level: int
     (poly-wise, bit-identical to separate calls). dec (..., k, beta, Lqp,
     N), swks broadcastable to it, a (..., beta, Lqp, N) broadcastable
     against dec's party axis."""
-    s_ntt = _sum_parties_ntt(params, dec, swks, level)
-    ci_ntt = external_product_ntt(params, dec, a, level)
-    both = mod_down_qp(params, torch.cat([s_ntt.unsqueeze(-3), ci_ntt],
-                                         dim=-3), level)
-    c0 = params.ring_q_at(level).add(c0, both[..., 0, :, :])
-    return torch.cat([c0.unsqueeze(-3), both[..., 1:, :, :]], dim=-3)
+    with span("ksw.v_sum"):
+        s_ntt = _sum_parties_ntt(params, dec, swks, level)
+    with span("ksw.external_product"):
+        ci_ntt = external_product_ntt(params, dec, a, level)
+    with span("ksw.mod_down"):
+        both = mod_down_qp(params, torch.cat([s_ntt.unsqueeze(-3), ci_ntt],
+                                             dim=-3), level)
+        c0 = params.ring_q_at(level).add(c0, both[..., 0, :, :])
+        return torch.cat([c0.unsqueeze(-3), both[..., 1:, :, :]], dim=-3)
 
 
 def rotation_steps(params: Parameters, rot_idx: int) -> list:
@@ -441,8 +468,9 @@ def conjugate(params: Parameters, ct: Ciphertext, cjk_stacked
     level = ct.level
     permuted = params.ring_q_at(level).permute_coeffs(
         ct.data, galois_element_conj(params.n))
-    data = _switch_parties(params, permuted[0],
-                           decompose(params, permuted[1:], level),
+    with span("ksw.decompose"):
+        dec = decompose(params, permuted[1:], level)
+    data = _switch_parties(params, permuted[0], dec,
                            slice_swk(params, cjk_stacked, level),
                            params.crs_at(-2, level), level)
     return Ciphertext(ids=ct.ids, data=data)

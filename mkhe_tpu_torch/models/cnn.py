@@ -24,6 +24,7 @@ from typing import List
 import numpy as np
 
 from .. import mkckks
+from ..utils.profiling import span
 
 WEIGHTS = (Path(__file__).resolve().parents[2] / "mkhe_tpu" / "models"
            / "data" / "cnn_weights.npz")
@@ -265,26 +266,27 @@ def fc2_layer(ev: mkckks.Evaluator, rlk, rtk, ct_vec, ct_mat, ct_bias,
 
 
 def _pipeline(ev, rlk, rtk, ct_img, ct_k, ct_fc1, ct_fc2, ct_b1, ct_b2,
-              pt_mask, mask_scale, layout: Layout = REF, marks=None):
-    """The full inference (cnn_test.go:99-178 order). marks, if given, is
-    called with "conv" and "fc1" after those layers are enqueued (the
-    card's per-layer timing records a CUDA event there)."""
-    h_img = ev.hoisted_form(ct_img)
-    h_k = [ev.hoisted_form(c) for c in ct_k]
-    h_fc1 = [ev.hoisted_form(c) for c in ct_fc1]
-    conv = convolution(ev, rlk, rtk, ct_img, h_img, ct_k, h_k, layout)
-    if marks:
-        marks("conv")
-    h_conv = ev.hoisted_form(conv)
-    sq1 = ev.mul_relin_hoisted_new(conv, conv, h_conv, h_conv, rlk)
-    h_sq1 = ev.hoisted_form(sq1)
-    f1 = fc1_layer(ev, rlk, rtk, sq1, h_sq1, ct_fc1, h_fc1, ct_b1, layout)
-    if marks:
-        marks("fc1")
-    h_f1 = ev.hoisted_form(f1)
-    sq2 = ev.mul_relin_hoisted_new(f1, f1, h_f1, h_f1, rlk)
-    return fc2_layer(ev, rlk, rtk, sq2, ct_fc2, ct_b2, pt_mask,
-                     mask_scale, layout)
+              pt_mask, mask_scale, layout: Layout = REF):
+    """The full inference (cnn_test.go:99-178 order), in three spans:
+    cnn.conv (the hoistings of the image and the model, the
+    convolution), cnn.fc1 (the square, fc1) and cnn.fc2 (the square,
+    fc2)."""
+    with span("cnn.conv"):
+        h_img = ev.hoisted_form(ct_img)
+        h_k = [ev.hoisted_form(c) for c in ct_k]
+        h_fc1 = [ev.hoisted_form(c) for c in ct_fc1]
+        conv = convolution(ev, rlk, rtk, ct_img, h_img, ct_k, h_k, layout)
+    with span("cnn.fc1"):
+        h_conv = ev.hoisted_form(conv)
+        sq1 = ev.mul_relin_hoisted_new(conv, conv, h_conv, h_conv, rlk)
+        h_sq1 = ev.hoisted_form(sq1)
+        f1 = fc1_layer(ev, rlk, rtk, sq1, h_sq1, ct_fc1, h_fc1, ct_b1,
+                       layout)
+    with span("cnn.fc2"):
+        h_f1 = ev.hoisted_form(f1)
+        sq2 = ev.mul_relin_hoisted_new(f1, f1, h_f1, h_f1, rlk)
+        return fc2_layer(ev, rlk, rtk, sq2, ct_fc2, ct_b2, pt_mask,
+                         mask_scale, layout)
 
 
 def build_fused_inference(params, rlk_set, rtk_set, ct_img, ct_k, ct_fc1,

@@ -14,15 +14,20 @@ plain_forward, then prints, per warm inference of the staged pipeline
   launches  NTT and key-switching kernel launches (ops/ntt_cuda and
             ops/basis_cuda counters) and key-switched rotations
             (count_rotations), mean over REPS inferences;
-  ops       over the same inferences, the calls and the ms of each
-            evaluator op the pipeline makes (op_profile: CUDA events in
-            stream order, so an op's time includes the device's waits for
-            the host inside it);
+  spans     over the same inferences, the calls and the device ms of
+            each span of the program (op_profile: the layers cnn.conv,
+            cnn.fc1 and cnn.fc2, the evaluator ops ckks.*, the key
+            switch's steps ksw.*), from a torch.profiler trace with the
+            spans on;
   trace     torch.profiler over two inferences (profile_mult.trace):
             kernel time, kernel count and the device idle share of the
             traced window, which the tracer's host cost inflates; beside
             it an estimate of the untraced idle share, 1 - (traced kernel
-            ms) / (untraced CUDA-event ms), from the two runs.
+            ms) / (untraced CUDA-event ms), from the two runs; then the
+            same with the spans on, per span;
+  fused     the inference as one CUDA-graph replay (build_fused_inference):
+            warm latency, and profile_mult.trace over FUSED_CALLS calls
+            (the spans fuse.call and fuse.replay, and Fused.replays).
 
 `setup`, `infer`, `op_profile` and `count_rotations` take any parameters,
 layout and device, so the same code runs at the MINI layout on the CPU.
@@ -38,21 +43,20 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile as torch_profile
 
 from . import mkckks, mkrlwe
 from .mkrlwe import keyswitch as ksw
 from .models import cnn
 from .ops import basis_cuda, ntt_cuda
-from .profile_mult import host_ms, median_ms, trace
+from .profile_mult import (enqueue_ms, host_ms, median_ms, print_trace,
+                           trace)
+from .utils import profiling
 
 SEED = 2024
 REPS = 5
+FUSED_CALLS = 20
 USERS = ("dataOwner", "modelOwner")
-# the evaluator ops cnn._pipeline calls; an op called inside another one
-# (mul_relin_new's hoistings) counts as its caller's time
-OPS = ("hoisted_form", "rotate_new", "rotate_hoisted_many_new",
-       "mul_relin_sum_new", "mul_relin_hoisted_new", "mul_relin_new",
-       "mul_ptxt_new", "add_new")
 
 
 def _sync(device: torch.device) -> None:
@@ -149,10 +153,10 @@ def image(layout: cnn.Layout, seed: int) -> np.ndarray:
                                                       layout.image))
 
 
-def infer(s: Setup, ct_img, marks=None) -> mkckks.Ciphertext:
+def infer(s: Setup, ct_img) -> mkckks.Ciphertext:
     """One inference through the staged pipeline."""
     return cnn._pipeline(s.ev, s.rlk, s.rtk, ct_img, *s.model, s.pt_mask,
-                         s.params.scale, s.layout, marks=marks)
+                         s.params.scale, s.layout)
 
 
 @contextlib.contextmanager
@@ -180,50 +184,23 @@ def count_rotations():
 
 
 @contextlib.contextmanager
-def op_profile(ev: mkckks.Evaluator):
-    """Counts and times ev's OPS while the block runs, and counts the
-    key-switched rotations. Yields a dict that, once the block has ended,
-    maps each op to (calls, ms) and "rotations" to the rotation count.
-    Times are CUDA events in stream order on a CUDA device, the host
-    clock otherwise."""
-    cuda = ev.params.rlwe.device.type == "cuda"
-    spans, depth = [], [0]
-
-    def mark():
-        if not cuda:
-            return time.perf_counter()
-        evt = torch.cuda.Event(enable_timing=True)
-        evt.record()
-        return evt
-
-    def wrap(name, fn):
-        def op(*args, **kwargs):
-            if depth[0]:
-                return fn(*args, **kwargs)
-            depth[0] += 1
-            try:
-                start = mark()
-                out = fn(*args, **kwargs)
-                spans.append((name, start, mark()))
-            finally:
-                depth[0] -= 1
-            return out
-        return op
-
+def op_profile(device: torch.device):
+    """Traces the block with torch.profiler and the program's spans on,
+    and counts the key-switched rotations. Yields a dict that, once the
+    block has ended, maps each span name to (calls, ms) and "rotations"
+    to the rotation count. ms: the device time of the kernels launched
+    inside the span on a CUDA device, the span's host time otherwise."""
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     stats = {}
-    for name in OPS:
-        setattr(ev, name, wrap(name, getattr(ev, name)))
-    try:
-        with count_rotations() as rot:
+    with torch_profile(activities=acts) as prof:
+        with profiling.spans_on(), count_rotations() as rot:
             yield stats
-    finally:
-        for name in OPS:
-            delattr(ev, name)
-    _sync(ev.params.rlwe.device)
-    for name in OPS:
-        ms = [(b.elapsed_time(e) if cuda else (e - b) * 1e3)
-              for n, b, e in spans if n == name]
-        stats[name] = (len(ms), sum(ms))
+        _sync(device)
+    key = "device_us" if cuda else "host_us"
+    for name, row in profiling.SpanTrace(
+            profiling.kineto_events(prof)).by_name().items():
+        stats[name] = (row["calls"], row[key] / 1e3)
     stats["rotations"] = rot["rotations"]
 
 
@@ -261,32 +238,41 @@ def main(argv=None) -> None:
           flush=True)
     ntt_cuda.reset_counters()
     basis_cuda.reset_counters()
-    with op_profile(s.ev) as ops:
+    with op_profile(dev) as ops:
         for _ in range(REPS):
             infer(s, ct_img)
     launches = {**ntt_cuda.counters(), **basis_cuda.counters()}
+    rotations = ops.pop("rotations")
     print(f"per inference, mean of {REPS}: launches "
           + ", ".join(f"{k} {launches[k] / REPS:g}" for k in (
               "ntt_fwd", "ntt_inv", *basis_cuda.counters()))
-          + f", {ops['rotations'] / REPS:g} key-switched rotations; ops (CUDA "
-          f"events in stream order) {sum(ops[n][1] for n in OPS) / REPS:.3f}"
-          " ms in all", flush=True)
-    for name in OPS:
-        calls, op_ms = ops[name]
-        print(f"  op {name}: {calls / REPS:g} calls, {op_ms / REPS:.3f} ms",
+          + f", {rotations / REPS:g} key-switched rotations; device ms "
+          "under each span (traced, spans on):", flush=True)
+    for name, (calls, op_ms) in sorted(ops.items(), key=lambda kv: kv[0]):
+        print(f"  span {name}: {calls / REPS:g} calls, {op_ms / REPS:.3f} ms",
               flush=True)
     tr = trace(lambda: infer(s, ct_img), 2, dev, args.trace)
-    print(f"traced {tr['calls']} inferences, per inference: wall "
-          f"{tr['wall_ms_per_call']:.3f} ms, kernel time "
-          f"{tr['kernel_ms_per_call']:.3f} ms, {tr['kernels_per_call']:.1f} "
-          f"kernels, device idle share of the traced window "
-          f"{tr['device_idle_share']:.4f}; untraced idle share estimated "
-          f"from two runs {1 - tr['kernel_ms_per_call'] / ms:.4f}",
-          flush=True)
-    for kind in ("ops", "kernels"):
-        for key, op_ms, count in tr["top_" + kind]:
-            print(f"  {kind[:-1]} {key}: {op_ms:.3f} ms in {count:.1f} calls "
-                  "per inference", flush=True)
+    print_trace(tr, "inference")
+    print(f"untraced idle share estimated from two runs "
+          f"{1 - tr['kernel_ms_per_call'] / ms:.4f}", flush=True)
+
+    fn, fargs = cnn.build_fused_inference(
+        s.params, s.rlk, s.rtk, ct_img, *s.model, s.pt_mask, layout=lo)
+
+    def fused():
+        return fn(fargs[0], fargs[1], (ct_img,) + tuple(fargs[2][1:]))
+
+    fused_ms = host_ms(fused, REPS, dev)
+    before = fn.replays
+    tr = trace(fused, FUSED_CALLS, dev)
+    print(f"fused: {fused_ms:.3f} ms an inference (host clock + "
+          f"synchronize, median of {REPS}); Fused.replays rose by "
+          f"{fn.replays - before} over the trace's {FUSED_CALLS // 4 + 1} "
+          f"warm-up calls and its two stretches of {FUSED_CALLS} calls; "
+          f"untraced enqueue (host ms of the call alone, median of {REPS}) "
+          f"staged {enqueue_ms(lambda: infer(s, ct_img), REPS, dev):.3f}, "
+          f"fused {enqueue_ms(fused, REPS, dev):.4f}", flush=True)
+    print_trace(tr, "fused inference")
 
 
 if __name__ == "__main__":

@@ -14,9 +14,15 @@ encryptions, as bench.py does), then prints:
             hoisted_form (digit mod_ups, digit NTT), mul_and_relin from
             hoisted digits (key aggregation, external products, party
             sum, ModDown) and the rescale;
-  trace     torch.profiler over three mults: device kernel time, kernel
-            count and device idle share per mult, and the ops that own
-            the most device time. --trace also writes a Chrome trace.
+  trace     torch.profiler over TRACE_CALLS mults: device kernel time,
+            kernel count and device idle share per mult, and the ops that
+            own the most device time; then the same mults again with the
+            program's spans on (utils/profiling.span): device ms a mult
+            under each span, the host ms of the top span (the enqueue),
+            the idle time by the span open when each gap opened, and what
+            the spans cost on and off. --trace writes a Chrome trace of
+            the second stretch.
+  ptmul     the same trace of Evaluator.mul_ptxt_new on ct0.
 
 `profile` and `trace` take any parameters and device, so the same code
 runs at a small size on the CPU (host-clock times, no device rows).
@@ -25,6 +31,7 @@ runs at a small size on the CPU (host-clock times, no device rows).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import subprocess
 import time
@@ -32,15 +39,19 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile as torch_profile
+from torch.profiler import (ProfilerActivity, profile as torch_profile,
+                            record_function)
 
 from . import mkckks, mkrlwe
 from .mkrlwe import keyswitch as ksw
 from .ops import basis, basis_cuda, ntt_cuda
+from .utils import profiling
 
 SEED = 2024
 PARTIES = 4   # the bench's op: the 4-party PN15QP880 mult
 REPS = 10
+TRACE_CALLS = 20
+REQUEST = "profile.request"   # the span around each traced call
 
 
 def setup(params, parties: int, seed: int = SEED):
@@ -155,38 +166,50 @@ def _self_device_us(evt) -> float:
     return evt.self_device_time_total
 
 
+def _stretch(fn, calls: int, acts, device: torch.device, spans: bool):
+    """torch.profiler over `calls` runs of fn, each inside a REQUEST span,
+    with the program's spans on or off; (profile, wall ms)."""
+    with torch_profile(activities=acts) as prof:
+        with profiling.spans_on() if spans else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                with record_function(REQUEST):
+                    fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def _kernels(events) -> int:
+    return sum(e.kind == "device" and not e.name.startswith(
+        ("Memcpy", "Memset")) for e in events)
+
+
 def trace(fn, calls: int, device: torch.device, path=None,
           top: int = 12) -> dict:
-    """torch.profiler over `calls` runs of fn. Device numbers come from the
-    kernel events alone (device_type CUDA): their summed time, their count,
-    and the share of the window from the first kernel's start to the last
-    kernel's end in which no kernel ran."""
+    """torch.profiler over `calls` runs of fn, each inside a REQUEST span,
+    twice, after a shorter traced warm-up (the profiler's first start
+    costs the host). The first stretch, with the program's spans off: the
+    device ops' summed time and count, the share of the window from the
+    first op's start to the last op's end in which none ran, and the ops
+    that own the most device time. The second, with spans on, read by
+    profiling.SpanTrace: per span name, calls, device ms (with and
+    without its children's) and host ms a call; the host ms of the
+    top-level spans a call (`enqueue_ms`); the device's idle share, and
+    its idle share while the host is inside a top-level span; the idle ms
+    a call by the span open when each gap opened; the share of the device
+    time under a program span (`span_coverage`) and without a runtime
+    call in the trace (`unresolved_share`); kernels a call; and the
+    second stretch's wall time over the first's, less 1
+    (`spans_overhead`)."""
     cuda = device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     fn()
-    if cuda:
-        torch.cuda.synchronize()
-    with torch_profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        if cuda:
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us, spans = 0.0, sorted((e.time_range.start, e.time_range.end)
-                                 for e in kern)
-    cur_s = cur_e = None
-    for s, e in spans:                    # union of the kernel intervals
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
-    window_us = spans[-1][1] - spans[0][0] if spans else 0.0
+    _stretch(fn, max(1, calls // 4), acts, device, spans=False)
+    prof, wall_ms = _stretch(fn, calls, acts, device, spans=False)
+    events = profiling.kineto_events(prof)
+    st = profiling.SpanTrace(events, REQUEST)
     avgs = prof.key_averages()
 
     def ranked(device_type):
@@ -195,23 +218,108 @@ def trace(fn, calls: int, device: torch.device, path=None,
         that launched the kernels; the NTT kernels, launched through
         ctypes, have no such op and show only among the CUDA rows."""
         rows = sorted((a for a in avgs if a.device_type == device_type
-                       and _self_device_us(a)),
+                       and a.key != REQUEST and _self_device_us(a)),
                       key=_self_device_us, reverse=True)
         return [(a.key[:90], _self_device_us(a) / 1e3 / calls,
                  a.count / calls) for a in rows[:top]]
 
-    if path:
-        prof.export_chrome_trace(str(path))
-    return {
+    out = {
         "calls": calls,
         "wall_ms_per_call": wall_ms / calls,
-        "kernel_ms_per_call": sum(_self_device_us(e) for e in kern)
-        / 1e3 / calls,
-        "kernels_per_call": len(kern) / calls,
-        "device_idle_share": (1 - busy_us / window_us) if window_us else None,
+        "kernel_ms_per_call": st.device_us / 1e3 / calls,
+        "kernels_per_call": _kernels(events) / calls,
+        "device_idle_share": (1 - st.busy_us / st.window_us)
+        if st.window_us else None,
         "top_ops": ranked(DeviceType.CPU),
         "top_kernels": ranked(DeviceType.CUDA),
     }
+
+    sprof, span_wall_ms = _stretch(fn, calls, acts, device, spans=True)
+    if path:
+        sprof.export_chrome_trace(str(path))
+    events = profiling.kineto_events(sprof)
+    st = profiling.SpanTrace(events, REQUEST)
+    per = 1e3 * calls                       # us in all -> ms a call
+    dev, win = st.device_us, st.window_us
+    idle = sorted(st.idle_by_span().items(), key=lambda kv: -kv[1])
+    out.update({
+        "spans": {name: (r["calls"] / calls, r["device_us"] / per,
+                         r["self_us"] / per, r["host_us"] / per)
+                  for name, r in st.by_name().items() if name != REQUEST},
+        "enqueue_ms": sum(s.end - s.start for s in st.top_level()) / per,
+        "span_idle_share": (1 - st.busy_us / win) if win else None,
+        "idle_in_op_share": st.idle_in_top_us() / win if win else None,
+        "idle_by_span": [(k, v / per) for k, v in idle[:top]],
+        "span_coverage": st.covered_us() / dev if dev else None,
+        "unresolved_share": st.unresolved_us / dev if dev else None,
+        "span_kernels_per_call": _kernels(events) / calls,
+        "spans_overhead": span_wall_ms / wall_ms - 1,
+    })
+    return out
+
+
+def enqueue_ms(fn, reps: int, device: torch.device) -> float:
+    """Median host-clock ms of fn() alone, untraced, each run starting on
+    an idle device: the time the host takes to enqueue its work."""
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    times = []
+    for _ in range(reps + 1):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    sync()
+    return statistics.median(times[1:])
+
+
+def span_ns(reps: int = 20_000, repeat: int = 5) -> tuple:
+    """Host ns that one `with profiling.span(...)` costs over an empty
+    loop's, the least of `repeat` loops of `reps`: with the spans off, and
+    on under a running CPU profiler."""
+    def loop(span):
+        t0 = time.perf_counter()
+        if span is None:
+            for _ in range(reps):
+                pass
+        else:
+            for _ in range(reps):
+                with span("ksw.tensor"):
+                    pass
+        return time.perf_counter() - t0
+
+    base = min(loop(None) for _ in range(repeat))
+    off = min(loop(profiling.span) for _ in range(repeat))
+    with torch_profile(activities=[ProfilerActivity.CPU]):
+        with profiling.spans_on():
+            on = min(loop(profiling.span) for _ in range(repeat))
+    return tuple((t - base) / reps * 1e9 for t in (off, on))
+
+
+def print_trace(tr: dict, what: str) -> None:
+    """trace()'s result, one line per row."""
+    print(f"traced {tr['calls']} {what}s, per {what}: wall "
+          f"{tr['wall_ms_per_call']:.3f} ms, kernel time "
+          f"{tr['kernel_ms_per_call']:.3f} ms, {tr['kernels_per_call']:.1f} "
+          f"kernels, device idle share {tr['device_idle_share']:.4f}",
+          flush=True)
+    for kind in ("ops", "kernels"):
+        for key, ms, count in tr["top_" + kind]:
+            print(f"  {kind[:-1]} {key}: {ms:.3f} ms in {count:.1f} calls "
+                  f"per {what}", flush=True)
+    print(f"spans on, per {what}: {tr['span_kernels_per_call']:.1f} kernels, "
+          f"enqueue (host ms of the top span) {tr['enqueue_ms']:.4f} ms, "
+          f"device idle share {tr['span_idle_share']:.4f}, of it while "
+          f"inside the top span {tr['idle_in_op_share']:.4f}; device time "
+          f"under a program span {tr['span_coverage']:.5f}, without a "
+          f"runtime call {tr['unresolved_share']:.5f}; spans_overhead "
+          f"{tr['spans_overhead']:.4f}", flush=True)
+    rows = sorted(tr["spans"].items(), key=lambda kv: -kv[1][1])
+    for name, (n, dev_ms, self_ms, host_ms) in rows:
+        print(f"  span {name}: {n:g} calls, device {dev_ms:.4f} ms (self "
+              f"{self_ms:.4f}), host {host_ms:.4f} ms", flush=True)
+    for name, ms in tr["idle_by_span"]:
+        print(f"  idle under {name}: {ms:.4f} ms", flush=True)
 
 
 def main(argv=None) -> None:
@@ -237,18 +345,21 @@ def main(argv=None) -> None:
           f"key-switching {res['keyswitch_launches']}", flush=True)
     for name, ms in res["steps_ms"].items():
         print(f"  step {name}: {ms:.3f} ms", flush=True)
-    tr = trace(lambda: ev.mul_relin_new(ct0, ct1, rlk), 3, params.rlwe.device,
-               args.trace)
-    print(f"traced {tr['calls']} mults, per mult: wall "
-          f"{tr['wall_ms_per_call']:.3f} ms, kernel time "
-          f"{tr['kernel_ms_per_call']:.3f} ms, {tr['kernels_per_call']:.1f} "
-          f"kernels, device idle share {tr['device_idle_share']:.4f}",
+    dev = params.rlwe.device
+    rng = np.random.default_rng(SEED + 3)
+    pt = torch.from_numpy(mkckks.Encryptor(params, seed=SEED + 4).encode_msg(
+        mkckks.Message(value=rng.uniform(0.1, 1.0, params.slots) + 0j))
+        .astype(np.int64)).to(dev)
+    ops = {"mult": lambda: ev.mul_relin_new(ct0, ct1, rlk),
+           "ptmul": lambda: ev.mul_ptxt_new(ct0, pt, params.scale)}
+    for what, fn in ops.items():
+        print_trace(trace(fn, TRACE_CALLS, dev,
+                          args.trace if what == "mult" else None), what)
+    print("untraced enqueue (host ms of the call alone, median of "
+          f"{REPS}): " + ", ".join(f"{what} {enqueue_ms(fn, REPS, dev):.4f}"
+                                   for what, fn in ops.items())
+          + "; host ns a span, off and on (traced): %.1f, %.1f" % span_ns(),
           flush=True)
-    for kind in ("ops", "kernels"):
-        for key, ms, count in tr["top_" + kind]:
-            print(f"  {kind[:-1]} {key}: {ms:.3f} ms in {count:.1f} calls "
-                  "per mult", flush=True)
-
 
 if __name__ == "__main__":
     main()

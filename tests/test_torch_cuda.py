@@ -594,6 +594,62 @@ def test_fuse_chained_on_card(gen):
                            _fuse_pipe(ev, keys, *c).ct.data)
 
 
+def test_fused_replays_and_spans_on_card(gen):
+    """Fused.replays rises by 1 a call and by k + 1 a run_k(k). A graph
+    captured with the spans off replays the same kernels with them on, to
+    the same bits, every device op put down by its correlation id under
+    fuse.call, the replay's under fuse.replay; the eager mult launches the
+    same kernels with the spans on and off, all of them under
+    ckks.mul_relin, to the same bits."""
+    import contextlib
+    from torch.profiler import ProfilerActivity, profile
+    from mkhe_tpu_torch import fuse, mkckks
+    from mkhe_tpu_torch.utils import profiling
+    params, rlk, rtk, cjk, fresh = _fuse_ctx(gen)
+    keys = dict(rlk_set=rlk, rtk_set=rtk, cjk_set=cjk)
+    fn, args = fuse.fuse(params, _fuse_pipe, fresh(), **keys)
+    assert fn.replays == 0
+    fn(*args)
+    fn(args[0], args[1], fresh())
+    assert fn.replays == 2
+    run_k, cargs = fuse.fuse_chained(params, _fuse_pipe, fresh(),
+                                     lambda cts, out: cts, **keys)
+    run_k(*cargs, 3)
+    assert run_k.fused.replays == 4
+    run_k(*cargs, 0)
+    assert run_k.fused.replays == 5
+
+    def traced(call, spans):
+        torch.cuda.synchronize()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            with profiling.spans_on() if spans else contextlib.nullcontext():
+                out = call()
+            torch.cuda.synchronize()
+        return out, profiling.kineto_events(prof)
+
+    def kernels(events):
+        return [e.name for e in sorted(events, key=lambda e: e.start)
+                if e.kind == "device"]
+
+    ev = mkckks.Evaluator(params)
+    a, b = fresh()
+    for call, top in ((lambda: fn(*args), "fuse.call"),
+                      (lambda: ev.mul_relin_new(a, b, rlk), "ckks.mul_relin")):
+        call()
+        (out_off, off), (out_on, on) = traced(call, False), traced(call, True)
+        assert torch.equal(out_off.ct.data, out_on.ct.data)
+        assert kernels(off) == kernels(on) and kernels(on)
+        st = profiling.SpanTrace(on)
+        assert st.unresolved_us == 0.0
+        assert st.covered_us() == pytest.approx(st.device_us)
+        assert [s.name for s in st.top_level()] == [top]
+    rows = profiling.SpanTrace(traced(lambda: fn(*args), True)[1]).by_name()
+    assert rows["fuse.replay"]["calls"] == 1
+    assert 0 < rows["fuse.replay"]["device_us"] < rows["fuse.call"][
+        "device_us"]
+
+
 def test_fused_bfv_split_and_batched_mults_on_card(gen):
     """BFV at logN 9 with the split NTT on: fuse of mult + add equals the
     staged ops, the batched mult (B = 2) equals mult by mult; CKKS

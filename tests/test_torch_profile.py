@@ -38,3 +38,15 @@ def test_trace_has_no_device_rows_on_cpu(ctx):
     assert tr["kernels_per_call"] == 0 and tr["kernel_ms_per_call"] == 0
     assert tr["device_idle_share"] is None
     assert tr["top_ops"] == [] and tr["top_kernels"] == []
+    # the second stretch, spans on: the mult's spans, host times only
+    assert tr["spans"]["ckks.mul_relin"][0] == 1
+    assert tr["spans"]["ksw.decompose"][0] == 2
+    assert all(dev == self_ms == 0 and host > 0
+               for _, dev, self_ms, host in tr["spans"].values())
+    assert tr["enqueue_ms"] == pytest.approx(
+        tr["spans"]["ckks.mul_relin"][3])
+    assert tr["span_kernels_per_call"] == 0 and tr["idle_by_span"] == []
+    assert all(tr[k] is None for k in (
+        "span_idle_share", "idle_in_op_share", "span_coverage",
+        "unresolved_share"))
+    assert math.isfinite(tr["spans_overhead"])

@@ -1,6 +1,6 @@
 """The CNN profiler (mkhe_tpu_torch/profile_cnn.py) at the MINI layout on
-the CPU: the same setup, inference and op counting that break the REF
-inference down on the card run end to end here; the counts of every op
+the CPU: the same setup, inference and span counting that break the REF
+inference down on the card run end to end here; the counts of every span
 and of the key-switched rotations follow from the layout, and the logits
 are within 5e-3 of plain_forward."""
 
@@ -12,6 +12,7 @@ import torch
 
 from mkhe_tpu_torch import mkckks, profile_cnn
 from mkhe_tpu_torch.models import cnn
+from mkhe_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -36,21 +37,30 @@ def mini():
     return s, img, s.encrypt_image(img)
 
 
-def _want_calls(lo):
-    """Calls per inference of each op of cnn._pipeline at layout lo."""
+def _want_spans(lo):
+    """Spans per inference of cnn._pipeline at layout lo, and the
+    key-switched rotations."""
     n = lo.n_diag
     log_gap, log_units = lo.gap.bit_length() - 1, lo.fc_units.bit_length() - 1
+    rotate_new = 2 + log_gap + 4 + log_units    # one key switch each
+    # image, 4 kernels, n fc1 blocks; conv's 3 rotated images, conv, sq1,
+    # fc1's n - 1 rotated vectors, f1; fc2's mul_relin_new, both operands
+    # in one span
+    hoistings = 1 + 4 + n + 3 + 1 + 1 + (n - 1) + 1 + 1
+    mults, sums = 3, (4, n)     # sq1, sq2, fc2's mult; conv's, fc1's sums
+    switches = rotate_new + 2   # and the two batched hoisted rotations
     return {
-        # image, 4 kernels, n fc1 blocks; conv's 3 rotated images, conv,
-        # sq1, fc1's n - 1 rotated vectors, f1
-        "hoisted_form": 1 + 4 + n + 3 + 1 + 1 + (n - 1) + 1,
-        "rotate_new": 2 + log_gap + 4 + log_units,
-        "rotate_hoisted_many_new": 2,
-        "mul_relin_sum_new": 2,
-        "mul_relin_hoisted_new": 2,
-        "mul_relin_new": 1,
-        "mul_ptxt_new": 1,
-        "add_new": 2 + log_gap + 1 + 4 + log_units + 1,
+        "cnn.conv": 1, "cnn.fc1": 1, "cnn.fc2": 1,
+        "ckks.mul_relin": mults + len(sums),
+        "ckks.mul_ptxt": 1,
+        "ckks.rescale": mults + len(sums) + 1,
+        "ckks.rotate": switches,
+        "ksw.decompose": hoistings + rotate_new + mults + len(sums),
+        "ksw.aggregate": mults + sum(sums),
+        "ksw.tensor": mults + sum(sums) + len(sums),
+        "ksw.external_product": 2 * mults + sum(sums) + len(sums) + switches,
+        "ksw.mod_down": 2 * mults + 3 * len(sums) + switches,
+        "ksw.v_sum": mults + len(sums) + switches,
         "rotations": 2 + log_gap + 4 + log_units + 3 + (n - 1),
     }
 
@@ -68,15 +78,16 @@ def test_setup_draws_what_the_inference_needs(mini):
 
 
 def test_op_profile_counts_every_op(mini):
+    """Every span of the inference, traced with the spans on, against the
+    layout's count; the host ms of each (no device here) and the logits."""
     s, img, ct_img = mini
-    with profile_cnn.op_profile(s.ev) as ops:
+    with profile_cnn.op_profile(s.params.rlwe.device) as ops:
         out = profile_cnn.infer(s, ct_img)
-    assert not any(name in vars(s.ev) for name in profile_cnn.OPS)
-    want = _want_calls(LO)
-    assert ops["rotations"] == want.pop("rotations")
-    assert {name: ops[name][0] for name in profile_cnn.OPS} == want
-    assert all(math.isfinite(ms) and ms > 0
-               for _, ms in (ops[n] for n in profile_cnn.OPS))
+    want = _want_spans(LO)
+    assert ops.pop("rotations") == want.pop("rotations")
+    assert {name: calls for name, (calls, _) in ops.items()} == want
+    assert all(math.isfinite(ms) and ms > 0 for _, ms in ops.values())
+    assert profiling.span("x") is profiling.span("y")   # off again
     assert out.ids == profile_cnn.USERS
     logits = s.logits(out)
     plain = cnn.plain_forward(img, *s.weights, LO)
@@ -89,7 +100,7 @@ def test_count_rotations_alone_and_restores(mini):
     rotate = profile_cnn.ksw.rotate
     with profile_cnn.count_rotations() as rot:
         profile_cnn.infer(s, ct_img)
-    assert rot["rotations"] == _want_calls(LO)["rotations"]
+    assert rot["rotations"] == _want_spans(LO)["rotations"]
     assert profile_cnn.ksw.rotate is rotate
     # the REF layout's count, which chip_smoke.py measures on the card
-    assert _want_calls(cnn.REF)["rotations"] == 29
+    assert _want_spans(cnn.REF)["rotations"] == 29

@@ -1,7 +1,7 @@
 """The port's last module gaps against the JAX package: utils.profiling
-(Timer, mulrelin_op_counts, the H100 roofline over
-profile_ntt.kernel_work), Ring.zero, Ring.from_mont and
-primes.bit_reverse, bit for bit where the values are integers."""
+(Timer, the H100 roofline over profile_ntt.kernel_work), Ring.zero,
+Ring.from_mont and primes.bit_reverse, bit for bit where the values are
+integers."""
 
 import re
 
@@ -22,12 +22,6 @@ torch.set_num_threads(1)
 
 LOGN = 8
 MODS = tprimes.ntt_primes(LOGN, 28.9, 1) + tprimes.ntt_primes(LOGN, 27.0, 3)
-
-
-@pytest.mark.parametrize("args", [(15, 28, 4, 14, 4), (14, 14, 4, 7, 2),
-                                  (10, 3, 2, 3, 1)])
-def test_mulrelin_op_counts(args):
-    assert tprof.mulrelin_op_counts(*args) == jprof.mulrelin_op_counts(*args)
 
 
 def test_timer_regions_and_summary():
