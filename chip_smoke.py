@@ -49,7 +49,8 @@ Phases, one line each, then two JSON lines:
               rescale) -> decrypt, and one 2-party request; each decrypts
               within log2|err| <= -log2(scale) + logslots + 12; the NTT
               and key-switching kernels' (mod_up, mod_down, mul_accum)
-              launch counters must grow during the phase;
+              launch counters must grow during the phase, the rescale
+              kernel's by one a request;
   5. bfv      the MKBFV path with the split NTT on (config.ntt_mxu_tail):
               PN15QP880, 4 parties, keys from the port's seeds on the card;
               two 4-party requests ((user0 + user1) x (user2 + user3))
@@ -154,18 +155,21 @@ Phases, one line each, then two JSON lines:
               56-term v-sum; mod_down of zt (8 x 32) and vz (5 x 32);
               every digit with coefficients where the float32 v differs
               from the exact floor (the seed's, planted where it gives
-              none); each kernel's ms (single launches; mean of 10), its
-              plain version's ms on the card and its bound
-              (keyswitch_bound).
+              none); the rescale (nb 2) of the mult's output (5, 28) x
+              2^15 and of a CNN ciphertext (3, 14) x 2^14 at
+              PN14QP433_CNN; each kernel's ms (single launches; mean of
+              10; the rescale's also as a CUDA-graph replay, the device's
+              time alone), its plain version's ms on the card and its
+              bound (keyswitch_bound).
 Then {"kernels": [...]} (launches summed over phases 4-6, as before phase
 7 existed, so phase 7's captured launches are not in them; ntt_variant's
 from phase 3b's probe run: the wrapper's launches, those captured into
 its CUDA graphs (profile_ntt.graph_ms) included and the graphs' replays,
 which run without the wrapper, not; times, bounds and plain times, all single
 launches, and ms_mean10 of phase 3 at logN 15, ntt_variant's of phase 3b,
-mod_up's, mod_down's and mul_accum's of phase 11 at the digits of both
-operands, zt and the v-sum; their launches, like the NTT's, over phases
-4-6) and, last, {"ok": true, "device": {...}}.
+mod_up's, mod_down's, mul_accum's and rescale's of phase 11 at the
+digits of both operands, zt, the v-sum and the mult's output; their
+launches, like the NTT's, over phases 4-6) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
 fails in phase 1.
@@ -207,7 +211,8 @@ VARIANT_CU = "mkhe_tpu_torch/csrc/ntt_variant.cu"
 KEYSWITCH_CU = "mkhe_tpu_torch/csrc/keyswitch.cu"
 DIGESTS = "tests/torch_seed_digests.json"
 KS_KERNELS = ("mod_up", "mod_down", "mul_accum")
-MAIN_COUNTS = ("ntt_fwd", "ntt_inv") + KS_KERNELS  # phases 4 and 6 launch
+# phases 4 and 6 launch these; the rescale a CKKS request
+MAIN_COUNTS = ("ntt_fwd", "ntt_inv") + KS_KERNELS + ("rescale",)
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
     ("ntt_inv", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
@@ -228,6 +233,8 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     ("mod_up", KEYSWITCH_CU, "mkhe_tpu/ops/basis.py:93"),
     ("mod_down", KEYSWITCH_CU, "mkhe_tpu/ops/basis.py:179"),
     ("mul_accum", KEYSWITCH_CU, "mkhe_tpu/mkrlwe/keyswitch.py:82"),
+    # the CKKS rescale, div_round_by_last_moduli
+    ("rescale", KEYSWITCH_CU, "mkhe_tpu/ops/basis.py:271"),
 )
 NTT_MAIN = KERNELS[:6]   # the NTT kernels whose launches phases 4-6 count
 MAIN = NTT_MAIN + KERNELS[7:]   # every kernel phases 4-6 count
@@ -580,8 +587,10 @@ def phase_mult(params) -> dict:
     runs4 = [request(users) for _ in range(3)]
     ms2, err2 = request(users[:2])
     launches = _counters()
-    if min(launches[k] for k in MAIN_COUNTS) < 1:
-        raise AssertionError(f"the main path missed a kernel: {launches}")
+    if min(launches[k] for k in MAIN_COUNTS) < 1 or launches["rescale"] != 4:
+        raise AssertionError(f"the main path missed a kernel or ran the "
+                             f"rescale other than once a request: "
+                             f"{launches}")
     ms4 = [ms for ms, _ in runs4]
     print(f"[4 mult] PN15QP880 logN {params.logn} L {params.max_level + 1} "
           f"+ {params.rlwe.pcount} P, alpha {params.rlwe.alpha}; keygen "
@@ -1442,8 +1451,11 @@ def keyswitch_bound(name: str, ins, out, width: int):
     limbs a digit) 8 an input limb (REDC, the float32 term) and 2 width +
     12 an output (the wide products, the Montgomery fold, the
     correction), mod_down 12 more an output (Barrett, difference, REDC),
-    mul_accum (width = terms) 2 a term and 12 an output."""
+    mul_accum (width = terms) 2 a term and 12 an output, the rescale
+    (width = dropped limbs) 12 a step and output."""
     nbytes = 8 * (sum(t.numel() for t in ins) + out.numel())
+    if name == "rescale":
+        return profile_ntt.bound(nbytes, 12 * width * out.numel())
     per_out = 2 * width + 12 + (12 if name == "mod_down" else 0)
     ops = out.numel() * per_out
     if name != "mul_accum":
@@ -1451,15 +1463,17 @@ def keyswitch_bound(name: str, ins, out, width: int):
     return profile_ntt.bound(nbytes, ops)
 
 
-def phase_keyswitch(params, params_bfv) -> dict:
+def phase_keyswitch(params, params_bfv, params_cnn) -> dict:
     """The key-switching kernels (csrc/keyswitch.cu) against their plain
     versions on the card, bit for bit, at the full shapes of one 4-party
     PN15QP880 mult at level 27 and BFV's 28 -> 28 mod_up, with the float32
     v boundary: the coefficients where the float32 v differs from the
-    exact floor (basis_cuda.v_floors), planted where the seed gives none.
-    Kernel ms (single launches; mean of 10), plain ms, bound. Returns the
-    {"kernels"} line's stats (mod_up: the digits of both operands;
-    mod_down: zt; mul_accum: the v-sum)."""
+    exact floor (basis_cuda.v_floors), planted where the seed gives none;
+    the rescale of the mult's output and of a PN14QP433_CNN ciphertext.
+    Kernel ms (single launches; mean of 10; the rescale's CUDA-graph
+    replay), plain ms, bound. Returns the {"kernels"} line's stats
+    (mod_up: the digits of both operands; mod_down: zt; mul_accum: the
+    v-sum; rescale: the mult's output)."""
     phase_t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 40)
@@ -1509,6 +1523,9 @@ def phase_keyswitch(params, params_bfv) -> dict:
     zt = _rand(gen, (8, 32, n), qpq)
     zt[:, 28:] = coeffs((8, 4, n), pm, len(pm))
     vz = _rand(gen, (5, 32, n), qpq)
+    ring_cnn = params_cnn.rlwe.ring_q_at(params_cnn.max_level)
+    ct_out = _rand(gen, (5, 28, n), qq)
+    ct_cnn = _rand(gen, (3, 14, ring_cnn.n), ring_cnn.q[:, None])
     # label, kernel, wrapper, plain, args, bound inputs, digit/term width
     cases = [
         ("mod_up", "digits of both operands (8, 28) -> (8, 14, 32)",
@@ -1531,6 +1548,10 @@ def phase_keyswitch(params, params_bfv) -> dict:
          (zt[:, :28], zt[:, 28:], down), (zt[:, :28], zt[:, 28:]), 4),
         ("mod_down", "vz (5, 32) -> (5, 28)", bc.mod_down, bc.mod_down_plain,
          (vz[:, :28], vz[:, 28:], down), (vz[:, :28], vz[:, 28:]), 4),
+        ("rescale", "the mult's output (5, 28) -> (5, 26), nb 2",
+         bc.rescale, bc.rescale_plain, (ct_out, ring_q, 2), (ct_out,), 2),
+        ("rescale", "CNN (3, 14) -> (3, 12) x 2^14, nb 2", bc.rescale,
+         bc.rescale_plain, (ct_cnn, ring_cnn, 2), (ct_cnn,), 2),
     ]
     rows, mism, err = [], 0, {}
     for name, label, kern, plain, args, ins, width in cases:
@@ -1546,7 +1567,8 @@ def phase_keyswitch(params, params_bfv) -> dict:
             name=name, label=label, ms=cuda_ms(lambda: kern(*args), 20, 1),
             ms_mean10=cuda_ms(lambda: kern(*args), 20),
             plain_ms=cuda_ms(lambda: plain(*args), 3, 1), bound_ms=b_ms,
-            bound_by=b_by))
+            bound_by=b_by, graph_ms=graph_ms(lambda: kern(*args), 20)
+            if name == "rescale" else None))
         del got, want
     if mism:
         raise AssertionError(f"the key-switching kernels differ from their "
@@ -1560,9 +1582,13 @@ def phase_keyswitch(params, params_bfv) -> dict:
                       f"{r['ms_mean10']:.4f}, plain {r['plain_ms']:.4f}, "
                       f"bound {r['bound_ms']:.4f} ({r['bound_by']}, "
                       f"{r['bound_ms'] / r['ms_mean10']:.1%})"
+                      + (f", graph {r['graph_ms']:.4f} "
+                         f"({r['bound_ms'] / r['graph_ms']:.1%})"
+                         if r['graph_ms'] else "")
                       for r in rows)
           + f"; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
-    line = {"mod_up": rows[0], "mul_accum": rows[5], "mod_down": rows[6]}
+    line = {"mod_up": rows[0], "mul_accum": rows[5], "mod_down": rows[6],
+            "rescale": rows[8]}
     return {name: dict(max_abs_err=err[name],
                        **{k: r[k] for k in ("ms", "ms_mean10", "plain_ms",
                                              "bound_ms", "bound_by")})
@@ -1585,8 +1611,8 @@ def main() -> None:
     phase_api(params, params_bfv, params_cnn)
     phase_parallel(params, params_bfv)
     phase_seeds()
-    ks = phase_keyswitch(params, params_bfv)
-    for name in KS_KERNELS:
+    ks = phase_keyswitch(params, params_bfv, params_cnn)
+    for name in KS_KERNELS + ("rescale",):
         stats[name] = dict(ks[name], launches=stats[name]["launches"])
     stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [

@@ -1,6 +1,7 @@
 // Key-switching element-wise kernels for Hopper (sm_90a): the exact RNS
 // basis extension (mod_up, with a digit axis for the gadget decomposition),
-// the ModDown, and the Montgomery contraction of the key products.
+// the ModDown, the Montgomery contraction of the key products, and the CKKS
+// rescale (the divide-and-round by the last moduli).
 //
 // These have no Pallas counterpart. In the JAX package XLA fuses each of
 // them into one element-wise pass of the jitted evaluator programs
@@ -11,7 +12,9 @@
 //     extension with the (xq - conv) * P^-1 epilogue);
 //   mul_accum_kernel:        the 64-bit (hi, lo) accumulate and one
 //     Montgomery reduction of the key contractions,
-//     mkhe_tpu/mkrlwe/keyswitch.py:82-175 and ops/modmath.py:207-227.
+//     mkhe_tpu/mkrlwe/keyswitch.py:82-175 and ops/modmath.py:207-227;
+//   rescale_kernel:          div_round_by_last_moduli, mkhe_tpu/ops/
+//     basis.py, every dropped limb in one pass (see the kernel).
 // Each gives the canonical residue its plain PyTorch version gives
 // (ops/basis_cuda.py); a canonical residue is unique, so any exact u32/u64
 // arithmetic agrees bit for bit. The one inexact step, mod_up's float32
@@ -229,6 +232,113 @@ mul_accum_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
   out[(o * L + l) * n + c] = mont_wide(acc, q, qn, bar);
 }
 
+// The CKKS rescale: Lattigo's DivRoundByLastModulusMany, which XLA fuses
+// into one loop from mkhe_tpu/ops/basis.py's div_round_by_last_moduli. For
+// s = 0 .. nb-1 the top limb l = L-1-s of the current value is rounded,
+// t_s = (x_l + floor(q_l / 2)) mod q_l, and every lower limb j becomes
+// (x_j + floor(q_l / 2) - t_s) q_l^-1 mod q_j. Step s needs step s-1's
+// result on limb L-1-s, so the chain is sequential over the dropped limbs.
+//
+// Bound: the bytes, one int64 read of every input limb and one int64 write
+// of every output limb, (P L + P (L - nb)) N x 8 B; the arithmetic is ~12
+// u32 instructions a step and output. So one thread owns a column
+// (polynomial, coefficient): it loads its nb dropped limbs, runs their
+// chain in registers (t_s), then streams the kept limbs, kBatch loads in
+// flight, each read once, all nb steps applied, written once. A warp covers
+// 32 neighbouring coefficients (coalesced 256 B accesses); the input comes
+// by its polynomial and limb strides (a level-dropped view, no copy).
+//
+// Table words (ops/basis_cuda.py::rescale_table), u32, in shared memory:
+//   limb[2 j ..]: q_j, floor(2^32 / q_j), for j < L;
+//   step[3 (s L + j) ..]: q_j + floor(q_l / 2) mod q_j, q_l^-1 mod q_j and
+//     its Shoup word floor(q_l^-1 2^32 / q_j), l = L-1-s, for j < l.
+constexpr int kMaxDrop = 8;          // dropped limbs held in registers
+constexpr int kMaxRescaleWords = 12288;   // the table in 48 KiB
+constexpr int kBatch = 4;            // kept-limb loads in flight a thread
+
+struct RescaleArgs {
+  const int64_t* x;    // (P, L, N): strides sxp, sxl
+  int64_t* out;        // (P, L - nb, N) contiguous
+  const uint32_t* table;
+  int64_t sxp, sxl;
+  int L, nb, n, nblk;
+};
+
+// One step on a canonical v mod q: (v + floor(q_l / 2) - t) q_l^-1 mod q,
+// t < 2^32 canonical mod q_l, w the step's three words for this q. The sum
+// lies in [1, 3q) and the Shoup product of any u32 in [0, 2q).
+__device__ __forceinline__ uint32_t rescale_step(uint32_t v, uint32_t t,
+                                                 uint32_t q, uint32_t bar,
+                                                 const uint32_t* w) {
+  const uint32_t a = v + w[0] - barrett(t, q, bar);
+  return csub(a * w[1] - __umulhi(a, w[2]) * q, q);
+}
+
+template <int kMax>
+__global__ void __launch_bounds__(kThreads)
+rescale_kernel(const RescaleArgs a) {
+  extern __shared__ uint32_t sm[];
+  const int L = a.L, nb = a.nb, kept = a.L - a.nb;
+  for (int w = threadIdx.x; w < (2 + 3 * nb) * L; w += kThreads)
+    sm[w] = a.table[w];
+  __syncthreads();
+  const int64_t p = blockIdx.x / a.nblk;
+  const int c = (blockIdx.x % a.nblk) * kThreads + threadIdx.x;
+  if (c >= a.n) return;
+  const uint32_t* limb = sm;
+  const uint32_t* step = sm + 2 * L;
+  const int64_t* x = a.x + p * a.sxp + c;
+
+  // d[s]: dropped limb L-1-s, brought up to step s; t[s]: its rounding.
+  uint32_t d[kMax], t[kMax];
+#pragma unroll
+  for (int s = 0; s < kMax; ++s)
+    d[s] = s < nb ? static_cast<uint32_t>(x[(L - 1 - s) * a.sxl]) : 0;
+#pragma unroll
+  for (int s = 0; s < kMax; ++s) {
+    t[s] = 0;
+    if (s < nb) {
+      const uint32_t ql = limb[2 * (L - 1 - s)];
+      t[s] = csub(d[s] + (ql >> 1), ql);
+#pragma unroll
+      for (int r = s + 1; r < kMax; ++r) {
+        const int j = L - 1 - r;
+        if (r < nb)
+          d[r] = rescale_step(d[r], t[s], limb[2 * j], limb[2 * j + 1],
+                              step + 3 * (s * L + j));
+      }
+    }
+  }
+
+  int64_t* out = a.out + p * kept * a.n + c;
+  for (int j0 = 0; j0 < kept; j0 += kBatch) {
+    uint32_t v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      v[b] = j0 + b < kept ? static_cast<uint32_t>(x[(j0 + b) * a.sxl]) : 0;
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int j = j0 + b;
+      if (j < kept) {
+        const uint32_t q = limb[2 * j], bar = limb[2 * j + 1];
+#pragma unroll
+        for (int s = 0; s < kMax; ++s)
+          if (s < nb)
+            v[b] = rescale_step(v[b], t[s], q, bar, step + 3 * (s * L + j));
+        out[static_cast<int64_t>(j) * a.n] = v[b];
+      }
+    }
+  }
+}
+
+template <int kMax>
+int launch_rescale(const RescaleArgs& a, int64_t n_polys, void* stream) {
+  const int smem = static_cast<int>(sizeof(uint32_t)) * (2 + 3 * a.nb) * a.L;
+  rescale_kernel<kMax><<<static_cast<unsigned>(n_polys * a.nblk), kThreads,
+                         smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes, ops/basis_cuda.py). Every pointer
@@ -290,4 +400,24 @@ extern "C" int mkhe_mul_accum(const void* a, const void* b, void* out,
       static_cast<int64_t*>(out), static_cast<const uint32_t*>(mods), s, L,
       n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The rescale: x (n_polys, L, N) by its strides -> out (n_polys, L - nb, N)
+// contiguous; table as above (rescale_kernel), (2 + 3 nb) L words.
+extern "C" int mkhe_rescale(const void* x, long long sxp, long long sxl,
+                            void* out, const void* table, long long n_polys,
+                            int L, int nb, int n, void* stream) {
+  const int nblk = (n + kThreads - 1) / kThreads;
+  if (n_polys < 1 || n < 1 || nb < 1 || nb > kMaxDrop || L <= nb ||
+      (2 + 3 * nb) * static_cast<long long>(L) > kMaxRescaleWords ||
+      n_polys * nblk > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RescaleArgs a{static_cast<const int64_t*>(x),
+                      static_cast<int64_t*>(out),
+                      static_cast<const uint32_t*>(table), sxp, sxl, L, nb,
+                      n, nblk};
+  if (nb <= 1) return launch_rescale<1>(a, n_polys, stream);
+  if (nb <= 2) return launch_rescale<2>(a, n_polys, stream);
+  if (nb <= 4) return launch_rescale<4>(a, n_polys, stream);
+  return launch_rescale<8>(a, n_polys, stream);
 }

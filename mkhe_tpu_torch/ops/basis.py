@@ -10,10 +10,10 @@ correction, as in the reference's FastBasisExtender):
   - decompose_digits / decompose_ntt: the KKLSS gadget digit expansion;
   - div_round_by_last_moduli: CKKS rescaling.
 
-mod_up (and with it the digits of decompose_digits) and mod_down run on
-the hand-written kernels of csrc/keyswitch.cu for a CUDA tensor and their
-plain versions for a CPU tensor (ops/basis_cuda.py, which also holds the
-tables); the rescale stays int64 torch ops.
+mod_up (and with it the digits of decompose_digits), mod_down and the
+rescale run on the hand-written kernels of csrc/keyswitch.cu for a CUDA
+tensor and their plain versions for a CPU tensor (ops/basis_cuda.py,
+which also holds the tables).
 
 Every output here is canonical. Where the JAX package returns lazy
 values (mod_up(lazy=True) < 4q), the canonical value is the same residue
@@ -22,13 +22,9 @@ and meets the same bound, so outputs agree bit for bit once reduced.
 
 from __future__ import annotations
 
-import functools
-from typing import Tuple
-
 import torch
 
 from . import basis_cuda
-from . import modmath as mm
 from .basis_cuda import (ModUpTables, digit_tables, mod_down_tables,
                          mod_up_tables)
 from .ring import Ring
@@ -85,36 +81,10 @@ def decompose_ntt(x, src_ring: Ring, dst_ring: Ring, alpha: int
 # CKKS rescaling: exact divide-and-round by the last nb moduli
 # ----------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _rescale_consts(moduli: Tuple[int, ...], nb: int, device: torch.device):
-    """For each of the nb dropped limbs (from the top): (half = q_last//2,
-    half mod q_j for the remaining j, q_last^-1 mod q_j in Montgomery)."""
-    steps = []
-    mods = list(moduli)
-    for _ in range(nb):
-        ql = mods.pop()
-        half = ql >> 1
-        half_rem = torch.tensor([half % q for q in mods], dtype=torch.int64,
-                                device=device)
-        qlinv = torch.tensor([mm.to_mont_host(pow(ql % q, -1, q), q)
-                              for q in mods], dtype=torch.int64,
-                             device=device)
-        steps.append((half, half_rem, qlinv))
-    return steps
-
-
 def div_round_by_last_moduli(x, ring_q: Ring, nb: int) -> torch.Tensor:
     """round(x / (q_{L-nb+1} * ... * q_L)) on canonical (..., L, N)
     coeff-domain polys; returns (..., L-nb, N). Lattigo's
-    DivRoundByLastModulusMany, as used by Rescale."""
-    cur = x
-    mods = ring_q
-    for half, half_rem, qlinv in _rescale_consts(ring_q.moduli, nb,
-                                                 ring_q.device):
-        L = cur.shape[-2]
-        last_t = mm.add_mod(cur[..., L - 1:L, :], half, mods.moduli[L - 1])
-        mods = mods.take(0, L - 1)
-        rest = mods.add(cur[..., :L - 1, :], half_rem[:, None])
-        cur = mods.mul_scalar_mont(mods.sub(rest, mods.reduce(last_t)),
-                                   qlinv)
-    return cur
+    DivRoundByLastModulusMany, as used by Rescale: one launch of
+    csrc/keyswitch.cu's rescale kernel on a CUDA tensor, the plain version
+    on a CPU tensor (basis_cuda.rescale)."""
+    return basis_cuda.rescale(x, ring_q, nb)

@@ -14,17 +14,20 @@ counterpart):
   mul_accum  mul_accum_kernel: (sum_t a_t * b_t) * 2^-32 mod q over term
              axes of strided, broadcast views (mkhe_tpu/mkrlwe/
              keyswitch.py:82-175, ops/modmath.py:207-227), the contraction
-             of _aggregate_keys, external_product_ntt and _sum_parties_ntt.
+             of _aggregate_keys, external_product_ntt and _sum_parties_ntt;
+  rescale    rescale_kernel: the CKKS rescale, mkhe_tpu/ops/basis.py's
+             div_round_by_last_moduli, every dropped limb in one pass.
 
 Every wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version (`mod_up_plain`, `decompose_plain`, `mod_down_plain`,
-`mul_accum_plain`: the int64 torch code the port ran before the kernels,
-unchanged in result), a CUDA tensor launches the kernel or raises. There
-is no fallback from one to the other. The wrappers check shapes and
-devices on both routes, allocate outputs with torch and launch on the
-current stream without a host sync, so a launch can be captured into a
-CUDA graph (fuse.py); the tables are built once per basis (lru_cache),
-by the first call, which the capture's warm-up makes.
+`mul_accum_plain`, `rescale_plain`: the int64 torch code the port ran
+before the kernels, unchanged in result), a CUDA tensor launches the
+kernel or raises. There is no fallback from one to the other. The
+wrappers check shapes and devices on both routes, allocate outputs with
+torch and launch on the current stream without a host sync, so a launch
+can be captured into a CUDA graph (fuse.py); the tables are built once
+per basis (lru_cache), by the first call, which the capture's warm-up
+makes.
 
 The kernels are built with the NTT kernels into one library
 (ntt_cuda.build: every csrc/*.cu) and loaded with ctypes.
@@ -32,6 +35,7 @@ The kernels are built with the NTT kernels into one library
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -44,11 +48,14 @@ import torch
 
 from . import modmath as mm
 from . import ntt_cuda
+from .ring import Ring
 
 MAX_Q = 1 << 29      # products of two residues < 2^58: 64 fit a u64
 MAX_LIMBS = 64       # the kernel's digit width (alpha) and output limbs
 FOLD = 32            # mul_accum_kernel: terms between two folds of the sum
 TERM_AXES, OUTER_AXES = 2, 3   # mul_accum_kernel's axes, after merging
+MAX_DROP = 8         # rescale_kernel: the dropped limbs it holds in registers
+MAX_RESCALE_WORDS = 12288   # its table, (2 + 3 nb) L words, in 48 KiB
 U32 = 1 << 32
 
 # Kernel launches since the last reset_counters(); only a launch of the
@@ -56,17 +63,20 @@ U32 = 1 << 32
 mod_up_launches = 0
 mod_down_launches = 0
 mul_accum_launches = 0
+rescale_launches = 0
 
 
 def reset_counters() -> None:
     global mod_up_launches, mod_down_launches, mul_accum_launches
+    global rescale_launches
     mod_up_launches = mod_down_launches = mul_accum_launches = 0
+    rescale_launches = 0
 
 
 def counters() -> dict:
     """Launches of each kernel since the last reset_counters()."""
     return {"mod_up": mod_up_launches, "mod_down": mod_down_launches,
-            "mul_accum": mul_accum_launches}
+            "mul_accum": mul_accum_launches, "rescale": rescale_launches}
 
 
 @functools.lru_cache(maxsize=1)
@@ -81,6 +91,8 @@ def load() -> ctypes.CDLL:
     lib.mkhe_mul_accum.argtypes = [vp, vp, vp, vp, ctypes.POINTER(ll), ci,
                                    ci, vp]
     lib.mkhe_mul_accum.restype = ci
+    lib.mkhe_rescale.argtypes = [vp, ll, ll, vp, vp, ll, ci, ci, ci, vp]
+    lib.mkhe_rescale.restype = ci
     return lib
 
 
@@ -262,6 +274,59 @@ def limb_tables(moduli: Tuple[int, ...], device: torch.device
         pack=_device_words(words.astype(np.uint32), device))
 
 
+def rescale_table(moduli, nb: int) -> np.ndarray:
+    """rescale_kernel's u32 words for dropping the last nb of `moduli`
+    (csrc/keyswitch.cu, "Table words"): 2 per limb j (q_j, floor(2^32 /
+    q_j)), then 3 per step s and limb j (q_j + floor(q_l / 2) mod q_j,
+    q_l^-1 mod q_j and its Shoup word, for the dropped l = L-1-s and j <
+    l; 0 for j >= l)."""
+    moduli = tuple(moduli)
+    _check_moduli(moduli)
+    L = len(moduli)
+    if not (1 <= nb <= MAX_DROP and nb < L
+            and (2 + 3 * nb) * L <= MAX_RESCALE_WORDS):
+        raise ValueError(f"the rescale kernel drops 1..{MAX_DROP} of L > nb "
+                         f"limbs, (2 + 3 nb) L <= {MAX_RESCALE_WORDS}; got "
+                         f"nb {nb} of {L}")
+    t = np.zeros((2 + 3 * nb) * L, np.uint64)
+    for j, q in enumerate(moduli):
+        t[2 * j:2 * j + 2] = q, U32 // q
+    for s in range(nb):
+        ql = moduli[L - 1 - s]
+        for j, q in enumerate(moduli[:L - 1 - s]):
+            inv = pow(ql % q, -1, q)
+            w = 2 * L + 3 * (s * L + j)
+            t[w:w + 3] = q + (ql >> 1) % q, inv, mm.shoup_host(inv, q)
+    return t.astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def rescale_words(moduli: Tuple[int, ...], nb: int, device: torch.device
+                  ) -> torch.Tensor:
+    """rescale_table on the device (int32), built once per (moduli, nb,
+    device), by the first call."""
+    return _device_words(rescale_table(moduli, nb), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _rescale_consts(moduli: Tuple[int, ...], nb: int, device: torch.device):
+    """rescale_plain's constants. For each of the nb dropped limbs (from
+    the top): (half = q_last//2, half mod q_j for the remaining j,
+    q_last^-1 mod q_j in Montgomery)."""
+    steps = []
+    mods = list(moduli)
+    for _ in range(nb):
+        ql = mods.pop()
+        half = ql >> 1
+        half_rem = torch.tensor([half % q for q in mods], dtype=torch.int64,
+                                device=device)
+        qlinv = torch.tensor([mm.to_mont_host(pow(ql % q, -1, q), q)
+                              for q in mods], dtype=torch.int64,
+                             device=device)
+        steps.append((half, half_rem, qlinv))
+    return steps
+
+
 # ----------------------------------------------------------------------------
 # Argument plans (shared by both routes, so the CPU tests check them)
 # ----------------------------------------------------------------------------
@@ -294,10 +359,24 @@ def polys(x, limbs: int) -> torch.Tensor:
     basis kernel reads it (a copy only where the leading axes do not
     flatten)."""
     _check_limbs(x, limbs)
-    x3 = x.reshape(math.prod(x.shape[:-2]), limbs, x.shape[-1])
+    x3 = x if x.dim() == 3 else x.reshape(math.prod(x.shape[:-2]), limbs,
+                                          x.shape[-1])
     if x3.shape[-1] > 1 and x3.stride(-1) != 1:
         x3 = x3.contiguous()
     return x3
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def _on(device):
+    """(device guard, the device's current stream as a raw pointer) for a
+    launch; the guard is a shared no-op where the device is the current
+    one (a guard and torch.cuda.current_stream took ~6 us of host a
+    launch on an H100 machine's host)."""
+    guard = (_NO_GUARD if device.index == torch.cuda.current_device()
+             else torch.cuda.device(device))
+    return guard, torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _launch_basis(x3, xq3, pack, alpha: int, beta: int, ld: int):
@@ -309,8 +388,8 @@ def _launch_basis(x3, xq3, pack, alpha: int, beta: int, ld: int):
     if out.numel() == 0:
         return out
     down = xq3 is not None
-    with torch.cuda.device(x3.device):
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
+    guard, stream = _on(x3.device)
+    with guard:
         err = load().mkhe_basis(
             x3.data_ptr(), x3.stride(0), x3.stride(1),
             xq3.data_ptr() if down else None,
@@ -464,14 +543,49 @@ def mul_accum(a, b, nterms: int, t: LimbTables) -> torch.Tensor:
     if out.numel() == 0:
         return out
     dims = (ctypes.c_longlong * len(plan.dims))(*plan.dims)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+    guard, stream = _on(a.device)
+    with guard:
         err = load().mkhe_mul_accum(a.data_ptr(), b.data_ptr(),
                                     out.data_ptr(), t.pack.data_ptr(), dims,
                                     L, a.shape[-1], stream)
     if err != 0:
         raise RuntimeError(f"mkhe_mul_accum launch failed: CUDA error {err}")
     mul_accum_launches += 1
+    return out
+
+
+def rescale(x, ring_q: Ring, nb: int) -> torch.Tensor:
+    """round(x / (q_{L-nb} ... q_{L-1})) of canonical coefficient-domain
+    (..., L, N) over ring_q's L moduli: canonical (..., L-nb, N) over the
+    first L-nb (Lattigo's DivRoundByLastModulusMany). Kernel on a CUDA
+    tensor (one launch; x by its polynomial and limb strides, so a
+    level-dropped view is read in place), `rescale_plain` on a CPU
+    tensor."""
+    global rescale_launches
+    L = ring_q.nlimbs
+    _check_on(x, ring_q.q)
+    _check_limbs(x, L)
+    if not 1 <= nb < L:
+        raise ValueError(f"a rescale drops 1..{L - 1} of {L} limbs, got {nb}")
+    if not _route(x):
+        return rescale_plain(x, ring_q, nb)
+    words = rescale_words(ring_q.moduli, nb, x.device)
+    x3 = polys(x, L)
+    n_polys, _, n = x3.shape
+    # (..., L-nb, N) contiguous is the kernel's (P, L-nb, N)
+    out = torch.empty((*x.shape[:-2], L - nb, n), dtype=torch.int64,
+                      device=x.device)
+    if out.numel():
+        guard, stream = _on(x.device)
+        with guard:
+            err = load().mkhe_rescale(x3.data_ptr(), x3.stride(0),
+                                      x3.stride(1), out.data_ptr(),
+                                      words.data_ptr(), n_polys, L, nb, n,
+                                      stream)
+        if err != 0:
+            raise RuntimeError(f"mkhe_rescale launch failed: CUDA error "
+                               f"{err}")
+        rescale_launches += 1
     return out
 
 
@@ -510,6 +624,21 @@ def decompose_plain(x, t: DigitTables) -> torch.Tensor:
                                        k * t.alpha + len(d.src_moduli), :],
                                      d)
                         for k, d in enumerate(t.digits)], dim=-3)
+
+
+def rescale_plain(x, ring_q: Ring, nb: int) -> torch.Tensor:
+    """rescale as int64 torch ops, one dropped limb at a time."""
+    cur = x
+    mods = ring_q
+    for half, half_rem, qlinv in _rescale_consts(ring_q.moduli, nb,
+                                                 ring_q.device):
+        L = cur.shape[-2]
+        last_t = mm.add_mod(cur[..., L - 1:L, :], half, mods.moduli[L - 1])
+        mods = mods.take(0, L - 1)
+        rest = mods.add(cur[..., :L - 1, :], half_rem[:, None])
+        cur = mods.mul_scalar_mont(mods.sub(rest, mods.reduce(last_t)),
+                                   qlinv)
+    return cur
 
 
 def mod_down_plain(xq, xp, t: ModDownTables) -> torch.Tensor:

@@ -9,7 +9,10 @@ mkhe_tpu (tolerance: exact, every output is a canonical residue):
 - the packed tables and the kernels' arithmetic, emulated in numpy over
   those plans and tables (REDC, the Barrett-folded 64-bit sums, the
   float32 v added left to right), including inputs planted on the float32
-  v boundary and contractions of more than 64 terms.
+  v boundary and contractions of more than 64 terms;
+- the rescale kernel's table and word arithmetic (Barrett of the rounded
+  limb, the Shoup product) against rescale_plain, boundary values
+  included; the rescale's JAX parity is tests/test_torch_basis.py's.
 
 logN 8, one torch thread; the kernels themselves run in
 tests/test_torch_cuda.py on a card."""
@@ -25,6 +28,7 @@ from mkhe_tpu.ops import modmath as jmm
 from mkhe_tpu.ops import ring as jring
 from mkhe_tpu.ops.primes import ntt_primes
 from mkhe_tpu_torch.ops import basis_cuda as bc
+from mkhe_tpu_torch.ops.ring import Ring
 
 torch.set_num_threads(1)
 
@@ -340,3 +344,131 @@ def test_contraction_plan_raises():
     # the same axes merge when both step alike: a plan of 1 outer axis
     plan = bc.contraction_plan(x, x, 1, 5)
     assert plan.dims[2:5] == (1, 1, 36)
+
+
+# -- the rescale ---------------------------------------------------------------
+
+def emulate_rescale(x3, words, L, nb):
+    """rescale_kernel on x3 (P, L, N) with its packed words, as
+    csrc/keyswitch.cu computes it: the dropped limbs' chain first, then
+    every step on each kept limb (Barrett of the rounded limb, the sum
+    below 3q, the Shoup product), in u32 words."""
+    w = words.astype(np.uint64)
+    x3 = x3.numpy().astype(np.uint64) & M32
+    limb = w[:2 * L].reshape(L, 2)
+    step = w[2 * L:].reshape(nb, L, 3)
+
+    def one(v, t, s, j):
+        q, bar = limb[j]
+        a = (v + step[s, j, 0] - _barrett(t, q, bar)) & M32
+        return _csub((a * step[s, j, 1] - ((a * step[s, j, 2]) >> S32) * q)
+                     & M32, q)
+
+    d = [x3[:, L - 1 - s] for s in range(nb)]
+    t = []
+    for s in range(nb):
+        ql = limb[L - 1 - s, 0]
+        t.append(_csub(d[s] + (ql >> np.uint64(1)), ql))
+        for r in range(s + 1, nb):
+            d[r] = one(d[r], t[s], s, L - 1 - r)
+    out = np.empty((x3.shape[0], L - nb, x3.shape[-1]), np.uint64)
+    for j in range(L - nb):
+        v = x3[:, j]
+        for s in range(nb):
+            v = one(v, t[s], s, j)
+        out[:, j] = v
+    return out.astype(np.int64)
+
+
+# the suite's Q; the largest modulus last (the rounded limb above every
+# other modulus); moduli just below 2^29 (the step's sum near 3q)
+RESCALE_MODULI = {"q": Q, "largest_last": Q[1:8] + Q[:1],
+                  "near_2^29": ntt_primes(LOGN, 28.99, 6)}
+
+
+def _rescale_input(moduli, nb, seed):
+    """Canonical (2, 3, L + 2, N) sliced to a level-dropped (2, 3, L, N)
+    view, with the boundary values in its first columns: every kept limb
+    at 0, 1 or q_j - 1 against every dropped limb at 0, 1, q_l - 1,
+    q_l // 2 or q_l // 2 + 1."""
+    L = len(moduli)
+    bound = np.array(moduli + moduli[:2], np.uint64)[:, None]
+    base = _rand((2, 3, L + 2, N), seed, bound)
+    x = base[:, :, :L, :]
+    q = torch.tensor(moduli)
+    kept = {0: torch.zeros_like(q), 1: torch.ones_like(q), 2: q - 1}
+    dropped = {0: torch.zeros_like(q), 1: torch.ones_like(q), 2: q - 1,
+               3: q // 2, 4: q // 2 + 1}
+    col = 0
+    for kv in kept.values():
+        for dv in dropped.values():
+            x[..., :L - nb, col] = kv[:L - nb]
+            x[..., L - nb:, col] = dv[L - nb:]
+            col += 1
+    return x
+
+
+@pytest.mark.parametrize("name", sorted(RESCALE_MODULI))
+@pytest.mark.parametrize("nb", [1, 2, 3])
+def test_rescale_kernel_arithmetic(name, nb):
+    """The kernel's word arithmetic, emulated on its (P, L, N) view of a
+    level-dropped input and its table, equals rescale_plain (the torch
+    chain) on random canonical inputs and the boundary values; the CPU
+    route is the plain version and counts no launch."""
+    moduli = RESCALE_MODULI[name]
+    L = len(moduli)
+    ring = Ring.create(moduli, LOGN, "cpu")
+    x = _rescale_input(moduli, nb, seed=50 + nb)
+    assert not x.is_contiguous()
+    want = bc.rescale_plain(x, ring, nb)
+    assert want.shape == (2, 3, L - nb, N)
+    bc.reset_counters()
+    _same(bc.rescale(x, ring, nb), want)
+    assert bc.counters()["rescale"] == 0
+    x3 = bc.polys(x, L)
+    assert x3.shape == (6, L, N) and x3.stride(-1) == 1
+    emu = emulate_rescale(x3, bc.rescale_table(moduli, nb), L, nb)
+    _same(emu.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3])
+def test_rescale_table_words(nb):
+    """Each word of the rescale table against its formula: q_j and
+    floor(2^32 / q_j) a limb; q_j + floor(q_l / 2) mod q_j, q_l^-1 mod
+    q_j and its Shoup word for each step's lower limbs; 0 above them."""
+    moduli = RESCALE_MODULI["largest_last"]
+    L = len(moduli)
+    w = bc.rescale_table(moduli, nb).astype(np.int64)
+    assert w.shape == ((2 + 3 * nb) * L,)
+    for j, q in enumerate(moduli):
+        assert tuple(w[2 * j:2 * j + 2]) == (q, (1 << 32) // q)
+    step = w[2 * L:].reshape(nb, L, 3)
+    for s in range(nb):
+        ql = moduli[L - 1 - s]
+        for j, q in enumerate(moduli):
+            if j >= L - 1 - s:
+                assert not step[s, j].any()
+                continue
+            half, inv, sh = (int(v) for v in step[s, j])
+            assert half == q + (ql // 2) % q
+            assert inv < q and inv * ql % q == 1
+            assert sh == (inv << 32) // q
+
+
+def test_rescale_raises():
+    """Limb counts, nb and types the wrapper does not take raise on the
+    CPU route too; the table refuses moduli of 2^29 or more, even moduli,
+    more dropped limbs than the kernel holds and a table over 48 KiB."""
+    ring = Ring.create(Q[:5], LOGN, "cpu")
+    x = _rand((2, 5, N), 0, np.array(Q[:5], np.uint64)[:, None])
+    for bad_nb in (0, 5):
+        with pytest.raises(ValueError):
+            bc.rescale(x, ring, bad_nb)
+    with pytest.raises(ValueError):
+        bc.rescale(x[:, :4], ring, 1)
+    with pytest.raises(TypeError):
+        bc.rescale(x.to(torch.int32), ring, 1)
+    for moduli, nb in ((Q[:3] + ((1 << 29) + 1,), 1), (Q[:3] + (1 << 20,), 1),
+                       (Q[:10], bc.MAX_DROP + 1), (Q * 200, 2)):
+        with pytest.raises(ValueError):
+            bc.rescale_table(moduli, nb)

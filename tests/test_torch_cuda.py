@@ -1,8 +1,8 @@
 """The CUDA NTT kernels (mkhe_tpu_torch/csrc/ntt.cu, the split NTT's
 kernels in csrc/ntt_split.cu in their five modes, and the NTT cost probe's
 variant in csrc/ntt_variant.cu) and the key-switching kernels
-(csrc/keyswitch.cu: mod_up with its digit axis, mod_down, mul_accum)
-against their plain PyTorch versions on the card, bit for bit; rotation, conjugation and the CNN pipeline on the
+(csrc/keyswitch.cu: mod_up with its digit axis, mod_down, mul_accum,
+the rescale) against their plain PyTorch versions on the card, bit for bit; rotation, conjugation and the CNN pipeline on the
 card against the same calls on the CPU; and threefry's bits, every sampler
 and the PN14QP433_CNN CRS drawn on the card against the CPU's. Needs an
 NVIDIA GPU and nvcc; without a card every test skips. This file imports
@@ -1148,7 +1148,8 @@ def test_keyswitch_kernels_count_and_raise(gen):
     bc.mul_accum(c, c, 1, lt)
     bc.mod_up_plain(x[:, :2], up)
     bc.mul_accum_plain(c, c, 1, lt)
-    assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1}
+    assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1,
+                             "rescale": 0}
     with pytest.raises(ValueError):
         bc.mod_up(x[:, :3], up)
     with pytest.raises(TypeError):
@@ -1166,7 +1167,8 @@ def test_keyswitch_kernels_count_and_raise(gen):
                                                             5, 6)
     with pytest.raises(ValueError):
         bc.mul_accum(y, z, 1, lt)
-    assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1}
+    assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1,
+                             "rescale": 0}
 
 
 @pytest.mark.parametrize("kernel", ["mod_up", "decompose", "mod_down",
@@ -1196,3 +1198,113 @@ def test_keyswitch_wrappers_capture_in_default_mode(gen, kernel):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ----------------------------------------------------------------------------
+# The rescale kernel (csrc/keyswitch.cu::rescale_kernel, basis_cuda.rescale)
+# ----------------------------------------------------------------------------
+
+def _config_q(preset):
+    """(logN, Q moduli) of a parameter preset, without building it."""
+    from mkhe_tpu_torch.mkckks import params as cp
+    args = {k: v for k, v in cp._PRESETS[preset].items()
+            if k not in ("logslots", "scale")}
+    return args["logn"], cp.select_moduli(**args)[0]
+
+
+@pytest.mark.parametrize("preset", ["PN15QP880", "PN14QP433_CNN"])
+def test_rescale_kernel_matches_plain(gen, preset):
+    """The rescale kernel against rescale_plain bit for bit at the
+    benchmark configurations' Q moduli and N (PN15QP880: logN 15, 28
+    limbs, the ckks_pn15qp880_4p cells; PN14QP433_CNN: logN 14, 14 limbs,
+    cnn_pn14qp433_2p), for nb = 1, 2, 3 and every L from nb + 1 up: 1-5
+    polynomials behind an extra batch axis, a level-dropped view of a
+    taller tensor (read by its strides), and views whose batch axes do not
+    flatten (copied by the wrapper)."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    logn, q = _config_q(preset)
+    full = Ring.create(q, logn, "cuda")
+    base = _rand(gen, (5, 2, len(q) + 1, 1 << logn),
+                 torch.tensor(q + q[:1], device="cuda")[:, None])
+    cases = 0
+    for nb in (1, 2, 3):
+        for L in range(nb + 1, len(q) + 1):
+            ring = full.take(0, L)
+            x = base[:1 + (L + nb) % 5, :, :L]
+            views = [x] + ([x.transpose(0, 1)] if L in (nb + 1, len(q))
+                           else [])
+            for x in views:
+                bc.reset_counters()
+                got = bc.rescale(x, ring, nb)
+                assert bc.counters()["rescale"] == 1
+                want = bc.rescale_plain(x, ring, nb)
+                torch.cuda.synchronize()
+                assert got.shape == want.shape == (*x.shape[:-2], L - nb,
+                                                   1 << logn)
+                assert got.is_contiguous()
+                assert torch.equal(got, want), (nb, L, tuple(x.shape))
+                cases += 1
+    assert cases == 3 * len(q)
+
+
+def test_rescale_kernel_in_captured_graph(gen):
+    """The rescale wrapper, warmed up once, captures into a CUDA graph in
+    the default (global) capture error mode; two replays, the second on
+    new input copied into the static one, equal rescale_plain."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    logn, q = _config_q("PN14QP433_CNN")
+    ring = Ring.create(q, logn, "cuda")
+    bound = torch.tensor(q + q[:2], device="cuda")[:, None]
+    x = _rand(gen, (3, len(q) + 2, 1 << logn), bound)[:, :len(q)]
+    bc.rescale(x, ring, 2)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        got = bc.rescale(x, ring, 2)
+    for replay in range(2):
+        if replay:
+            x.copy_(_rand(gen, x.shape, bound[:len(q)]))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, bc.rescale_plain(x, ring, 2))
+
+
+def test_rescale_launches_once_per_op(gen):
+    """One mul_relin_new and one mul_ptxt_new each launch the rescale
+    kernel exactly once."""
+    import numpy as np
+    from mkhe_tpu_torch import mkckks
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    params, rlk, _, _, fresh = _fuse_ctx(gen, rots=())
+    ev = mkckks.Evaluator(params)
+    a, b = fresh()
+    pt = torch.from_numpy(mkckks.Encryptor(params, seed=90).encode_msg(
+        mkckks.Message(value=np.full(params.slots, 0.25))).astype(
+            np.int64)).cuda()
+    for call in (lambda: ev.mul_relin_new(a, b, rlk),
+                 lambda: ev.mul_ptxt_new(a, pt, params.scale)):
+        bc.reset_counters()
+        out = call()
+        torch.cuda.synchronize()
+        assert out.level < a.level
+        assert bc.counters()["rescale"] == 1
+
+
+def test_rescale_wrapper_raises_on_cuda(gen):
+    """A modulus of 2^29 or more, a ring on another device and a wrong
+    limb count raise on a CUDA tensor (no fallback to the torch chain);
+    nothing launches."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    from mkhe_tpu_torch.ops.primes import _is_prime
+    q = ntt_primes(10, 27.0, 4)
+    # the first NTT prime for logN 10 above 2^29 (ntt_primes stays below)
+    big = (next(p for p in range((1 << 29) + 1, 1 << 30, 1 << 11)
+                if _is_prime(p)),)
+    x = _rand(gen, (2, 5, 1 << 10), 1 << 27)
+    bc.reset_counters()
+    with pytest.raises(ValueError, match="2\\^29"):
+        bc.rescale(x, Ring.create(q + big, 10, "cuda"), 1)
+    with pytest.raises(ValueError):
+        bc.rescale(x, Ring.create(q + big, 10, "cpu"), 1)
+    with pytest.raises(ValueError):
+        bc.rescale(x[:, :4], Ring.create(q + big, 10, "cuda"), 1)
+    assert bc.counters()["rescale"] == 0
