@@ -18,6 +18,7 @@ import torch
 
 from ..ops import basis
 from ..ops import modmath as mm
+from ..utils.profiling import span
 from .params import Parameters
 
 
@@ -48,29 +49,33 @@ def _tables(src, dst):
 def mod_up_q_to_r(params: Parameters, x) -> torch.Tensor:
     """(..., Lq, N) mod Q -> (..., 2Lq, N) mod R, coefficient domain
     (FastBasisExtender.ModUpQtoR, mkbfv/basis_extension.go:49-63)."""
-    rq, rqm = params.ring_q, params.ring_qmul
-    return torch.cat([x, basis.mod_up(x, rq, rqm, _tables(rq, rqm))], dim=-2)
+    with span("bfv.lift"):
+        rq, rqm = params.ring_q, params.ring_qmul
+        return torch.cat([x, basis.mod_up(x, rq, rqm, _tables(rq, rqm))],
+                         dim=-2)
 
 
 def rescale_q_to_r(params: Parameters, y) -> torch.Tensor:
     """(..., Lq, N) mod Q -> (..., 2Lq, N) mod R holding
     w = -(y*QMul mod Q) * Q^-1 mod QMul, extended to R
     (FastBasisExtender.Rescale, mkbfv/basis_extension.go:83-97)."""
-    rq, rqm = params.ring_q, params.ring_qmul
-    qmul_mod_q, qinv_mod_qmul, _ = _c(params)
-    a = rq.mul_scalar_mont(y, qmul_mod_q)                 # y*QMul mod Q
-    conv = basis.mod_up(a, rq, rqm, _tables(rq, rqm))     # a mod QMul
-    w = rqm.mul_scalar_mont(rqm.neg(conv), qinv_mod_qmul)
-    w_q = basis.mod_up(w, rqm, rq, _tables(rqm, rq))      # w mod Q
-    return torch.cat([w_q, w], dim=-2)
+    with span("bfv.rescale_qr"):
+        rq, rqm = params.ring_q, params.ring_qmul
+        qmul_mod_q, qinv_mod_qmul, _ = _c(params)
+        a = rq.mul_scalar_mont(y, qmul_mod_q)                 # y*QMul mod Q
+        conv = basis.mod_up(a, rq, rqm, _tables(rq, rqm))     # a mod QMul
+        w = rqm.mul_scalar_mont(rqm.neg(conv), qinv_mod_qmul)
+        w_q = basis.mod_up(w, rqm, rq, _tables(rqm, rq))      # w mod Q
+        return torch.cat([w_q, w], dim=-2)
 
 
 def quantize(params: Parameters, x_r_ntt) -> torch.Tensor:
     """NTT-domain (..., 2Lq, N) over R -> coefficient-domain (..., Lq, N)
     over Q: round(t * x / QMul) (FastBasisExtender.Quantize,
     mkbfv/basis_extension.go:66-80)."""
-    ring_r = params.ring_r
-    tx = ring_r.intt(ring_r.mul_scalar_mont(x_r_ntt, _c(params)[2]))
-    lq = params.ring_q.nlimbs
-    return basis.mod_down(tx[..., :lq, :], tx[..., lq:, :], params.ring_q,
-                          params.ring_qmul)
+    with span("bfv.quantize"):
+        ring_r = params.ring_r
+        tx = ring_r.intt(ring_r.mul_scalar_mont(x_r_ntt, _c(params)[2]))
+        lq = params.ring_q.nlimbs
+        return basis.mod_down(tx[..., :lq, :], tx[..., lq:, :],
+                              params.ring_q, params.ring_qmul)

@@ -11,6 +11,7 @@ import torch
 
 from ..mkrlwe import keyswitch as ksw
 from ..mkrlwe.elements import Ciphertext, union_ids
+from ..utils.profiling import span
 from .params import Parameters
 from .keys import RelinearizationKeySet
 from . import basis as bfv_basis
@@ -49,8 +50,9 @@ class Evaluator:
                       rlk_set: RelinearizationKeySet) -> Ciphertext:
         """Lift operand 0 to R, rescale operand 1 by QMul/Q into R
         (evaluator.go:118-137), then MulAndRelinBFV."""
-        return self._mul_relin(ct0.ids, ct1.ids, ct0.data, ct1.data,
-                               rlk_set)
+        with span("bfv.mul_relin"):
+            return self._mul_relin(ct0.ids, ct1.ids, ct0.data, ct1.data,
+                                   rlk_set)
 
     def _mul_relin(self, ids0, ids1, data0, data1, rlk_set) -> Ciphertext:
         p = self.params
@@ -68,18 +70,19 @@ class Evaluator:
         N), so each NTT launch covers B times the polynomials of one
         mult. Returns a list of Ciphertexts, each bit-identical to
         mul_relin_new on its pair."""
-        cts0, cts1 = list(cts0), list(cts1)
-        if len(cts0) != len(cts1) or not cts0:
-            raise ValueError("need equal-length non-empty batches")
-        for lst in (cts0, cts1):
-            if any(c.ids != lst[0].ids for c in lst):
-                raise ValueError("batch must share the id tuple")
-        out = self._mul_relin(
-            cts0[0].ids, cts1[0].ids,
-            torch.stack([c.data for c in cts0], dim=1),
-            torch.stack([c.data for c in cts1], dim=1), rlk_set)
-        return [Ciphertext(ids=out.ids, data=d)
-                for d in out.data.movedim(1, 0).contiguous()]
+        with span("bfv.mul_relin"):
+            cts0, cts1 = list(cts0), list(cts1)
+            if len(cts0) != len(cts1) or not cts0:
+                raise ValueError("need equal-length non-empty batches")
+            for lst in (cts0, cts1):
+                if any(c.ids != lst[0].ids for c in lst):
+                    raise ValueError("batch must share the id tuple")
+            out = self._mul_relin(
+                cts0[0].ids, cts1[0].ids,
+                torch.stack([c.data for c in cts0], dim=1),
+                torch.stack([c.data for c in cts1], dim=1), rlk_set)
+            return [Ciphertext(ids=out.ids, data=d)
+                    for d in out.data.movedim(1, 0).contiguous()]
 
     def hoisted_form(self, ct: Ciphertext) -> bfv_ksw.HoistedCiphertext:
         """Both double-basis forms of ct and their decompositions, so that
@@ -91,11 +94,12 @@ class Evaluator:
                               rlk_set: RelinearizationKeySet) -> Ciphertext:
         """MulAndRelinBFVHoisted (keyswitch_hoisted.go:39-207): multiply
         two hoisted forms."""
-        rlk = rlk_set.stacked(union_ids(h0.ids, h1.ids))
-        return bfv_ksw.mul_and_relin_bfv(
-            self.params, Ciphertext(ids=h0.ids, data=h0.lift),
-            Ciphertext(ids=h1.ids, data=h1.resc), rlk,
-            dec0=h0.dec_lift, dec1=h1.dec_resc)
+        with span("bfv.mul_relin"):
+            rlk = rlk_set.stacked(union_ids(h0.ids, h1.ids))
+            return bfv_ksw.mul_and_relin_bfv(
+                self.params, Ciphertext(ids=h0.ids, data=h0.lift),
+                Ciphertext(ids=h1.ids, data=h1.resc), rlk,
+                dec0=h0.dec_lift, dec1=h1.dec_resc)
 
     def rotate_new(self, ct: Ciphertext, rot_idx: int, rtk_set
                    ) -> Ciphertext:

@@ -21,6 +21,7 @@ import torch
 from ..mkrlwe import keyswitch as ksw
 from ..mkrlwe.elements import Ciphertext, union_ids
 from ..ops import basis as rns_basis
+from ..utils.profiling import span
 from .params import Parameters
 from . import basis as bfv_basis
 
@@ -50,11 +51,12 @@ def decompose_bfv(params: Parameters, x_r) -> torch.Tensor:
 
 def hoist(params: Parameters, ct: Ciphertext) -> HoistedCiphertext:
     """Both double-basis forms of ct and their decompositions."""
-    lift = bfv_basis.mod_up_q_to_r(params, ct.data)
-    resc = bfv_basis.rescale_q_to_r(params, ct.data)
-    return HoistedCiphertext(ids=ct.ids, lift=lift, resc=resc,
-                             dec_lift=decompose_bfv(params, lift[1:]),
-                             dec_resc=decompose_bfv(params, resc[1:]))
+    with span("ksw.decompose"):
+        lift = bfv_basis.mod_up_q_to_r(params, ct.data)
+        resc = bfv_basis.rescale_q_to_r(params, ct.data)
+        return HoistedCiphertext(ids=ct.ids, lift=lift, resc=resc,
+                                 dec_lift=decompose_bfv(params, lift[1:]),
+                                 dec_resc=decompose_bfv(params, resc[1:]))
 
 
 def mul_and_relin_bfv(params: Parameters, ct0r: Ciphertext,
@@ -76,10 +78,12 @@ def mul_and_relin_bfv(params: Parameters, ct0r: Ciphertext,
     ids0, ids1 = ct0r.ids, ct1r.ids
     ids = union_ids(ids0, ids1)
 
-    if dec0 is None:
-        dec0 = decompose_bfv(params, ct0r.data[1:])
-    if dec1 is None:
-        dec1 = decompose_bfv(params, ct1r.data[1:])
+    if dec0 is None or dec1 is None:
+        with span("ksw.decompose"):
+            if dec0 is None:
+                dec0 = decompose_bfv(params, ct0r.data[1:])
+            if dec1 is None:
+                dec1 = decompose_bfv(params, ct1r.data[1:])
 
     b_all, d_all, v_all = rlk_stacked
     sel0 = [ids.index(i) for i in ids0]
@@ -89,42 +93,50 @@ def mul_and_relin_bfv(params: Parameters, ct0r: Ciphertext,
     v_keys = ksw._rows(v_all, sel0)
     u_key = rp.crs_at(-1, level)
 
-    x = ksw._aggregate_keys(rp, dec0, d_keys, level)
-    y = ksw._aggregate_keys(rp, dec1, b_keys, level)
+    with span("ksw.aggregate"):
+        x = ksw._aggregate_keys(rp, dec0, d_keys, level)
+        y = ksw._aggregate_keys(rp, dec1, b_keys, level)
 
     # tensor in R (NTT domain), then quantize every component by t/QMul
-    nt0 = ring_r.ntt(ct0r.data)
-    nt1 = ring_r.ntt(ct1r.data)
-    nt0_0m = ring_r.to_mont(nt0[0])
-    nt1_0m = ring_r.to_mont(nt1[0])
-    tensor = [ring_r.mul_mont(nt1[0], nt0_0m)]
-    for pid in ids:
-        acc = None
-        if pid in ids0:
-            acc = ring_r.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
-        if pid in ids1:
-            term = ring_r.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
-            acc = term if acc is None else ring_r.add(acc, term)
-        tensor.append(acc)
+    with span("bfv.tensor"):
+        nt0 = ring_r.ntt(ct0r.data)
+        nt1 = ring_r.ntt(ct1r.data)
+        nt0_0m = ring_r.to_mont(nt0[0])
+        nt1_0m = ring_r.to_mont(nt1[0])
+        tensor = [ring_r.mul_mont(nt1[0], nt0_0m)]
+        for pid in ids:
+            acc = None
+            if pid in ids0:
+                acc = ring_r.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
+            if pid in ids1:
+                term = ring_r.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
+                acc = term if acc is None else ring_r.add(acc, term)
+            tensor.append(acc)
     out = bfv_basis.quantize(params, torch.stack(tensor))
 
     # out_j += Ext(ct1r_j, x); t_i = Ext(ct0r_i, y): one batched iNTT +
     # ModDown for both (poly-wise, so bit-identical)
-    z1_ntt = ksw.external_product_ntt(rp, dec1, x, level)
-    t_ntt = ksw.external_product_ntt(rp, dec0, y, level)
+    with span("ksw.external_product"):
+        z1_ntt = ksw.external_product_ntt(rp, dec1, x, level)
+        t_ntt = ksw.external_product_ntt(rp, dec0, y, level)
     k1 = len(ids1)
-    zt = ksw.mod_down_qp(rp, torch.cat([z1_ntt, t_ntt]), level)
-    z1, t = zt[:k1], zt[k1:]
-    i1 = ksw.index(tuple(1 + s for s in sel1), out.device)
-    out[i1] = ring_q.add(out[i1], z1)
+    with span("ksw.mod_down"):
+        zt = ksw.mod_down_qp(rp, torch.cat([z1_ntt, t_ntt]), level)
+        z1, t = zt[:k1], zt[k1:]
+        i1 = ksw.index(tuple(1 + s for s in sel1), out.device)
+        out[i1] = ring_q.add(out[i1], z1)
 
     # Q-basis fixups with v_i and u, again one batched ModDown
-    dec_t = ksw.decompose(rp, t, level)
-    v_ntt = ksw._sum_parties_ntt(rp, ksw.parties_inner(dec_t), v_keys,
-                                 level)
-    zu_ntt = ksw.external_product_ntt(rp, dec_t, u_key, level)
-    vz = ksw.mod_down_qp(rp, torch.cat([v_ntt[None], zu_ntt]), level)
-    out[0] = ring_q.add(out[0], vz[0])
-    i0 = ksw.index(tuple(1 + s for s in sel0), out.device)
-    out[i0] = ring_q.add(out[i0], vz[1:])
+    with span("ksw.decompose"):
+        dec_t = ksw.decompose(rp, t, level)
+    with span("ksw.v_sum"):
+        v_ntt = ksw._sum_parties_ntt(rp, ksw.parties_inner(dec_t), v_keys,
+                                     level)
+    with span("ksw.external_product"):
+        zu_ntt = ksw.external_product_ntt(rp, dec_t, u_key, level)
+    with span("ksw.mod_down"):
+        vz = ksw.mod_down_qp(rp, torch.cat([v_ntt[None], zu_ntt]), level)
+        out[0] = ring_q.add(out[0], vz[0])
+        i0 = ksw.index(tuple(1 + s for s in sel0), out.device)
+        out[i0] = ring_q.add(out[i0], vz[1:])
     return Ciphertext(ids=ids, data=out)

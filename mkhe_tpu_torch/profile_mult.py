@@ -1,6 +1,6 @@
 """Where the time of one multi-party mult + relin + rescale goes.
 
-    python -m mkhe_tpu_torch.profile_mult [--trace PATH]
+    python -m mkhe_tpu_torch.profile_mult [--trace PATH] [--bfv]
 
 Builds PN15QP880 keys for 4 parties from a seed on the first CUDA device
 and the bench operands (ct0 the running sum, ct1 the running difference of fresh
@@ -24,6 +24,11 @@ encryptions, as bench.py does), then prints:
             the second stretch.
   ptmul     the same trace of Evaluator.mul_ptxt_new on ct0.
 
+--bfv profiles the 4-party MKBFV PN15QP880 mult + relin instead (the
+same operands, messages uniform mod t): its latency and the same trace,
+spans on, with the BFV steps (bfv.lift, bfv.rescale_qr, bfv.tensor,
+bfv.quantize) beside the key switch's.
+
 `profile` and `trace` take any parameters and device, so the same code
 runs at a small size on the CPU (host-clock times, no device rows).
 """
@@ -42,7 +47,7 @@ from torch.autograd import DeviceType
 from torch.profiler import (ProfilerActivity, profile as torch_profile,
                             record_function)
 
-from . import mkckks, mkrlwe
+from . import mkbfv, mkckks, mkrlwe
 from .mkrlwe import keyswitch as ksw
 from .ops import basis, basis_cuda, ntt_cuda
 from .utils import profiling
@@ -68,6 +73,28 @@ def setup(params, parties: int, seed: int = SEED):
     cts = [enc.encrypt_msg(mkckks.Message(
         value=rng.uniform(0.1 / parties, 1.0 / parties, params.slots)
         + 0j), pks[uid]) for uid in users]
+    ct0 = ct1 = cts[0]
+    for c in cts[1:]:
+        ct0, ct1 = ev.add_new(ct0, c), ev.sub_new(ct1, c)
+    return ev, ct0, ct1, rlk
+
+
+def setup_bfv(params, parties: int, seed: int = SEED):
+    """BFV keys for `parties` users and the bench operands ct0 (the sum)
+    and ct1 (the running difference) of fresh encryptions of messages
+    uniform mod t."""
+    users = tuple(f"user{i}" for i in range(parties))
+    kgen = mkbfv.KeyGenerator(params, seed=seed)
+    rlk, pks = mkbfv.RelinearizationKeySet(), {}
+    for uid in users:
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        rlk.add(kgen.gen_relinearization_key_bfv(sk,
+                                                 kgen.gen_secret_key(uid)))
+    enc = mkbfv.Encryptor(params, seed=seed + 1)
+    ev = mkbfv.Evaluator(params)
+    rng = np.random.default_rng(seed + 2)
+    cts = [enc.encrypt_msg(rng.integers(0, params.t, params.n), pks[uid])
+           for uid in users]
     ct0 = ct1 = cts[0]
     for c in cts[1:]:
         ct0, ct1 = ev.add_new(ct0, c), ev.sub_new(ct1, c)
@@ -326,6 +353,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the traced mults here")
+    ap.add_argument("--bfv", action="store_true",
+                    help="profile the MKBFV mult + relin instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
@@ -334,6 +363,20 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip(), flush=True)
+    if args.bfv:
+        params = mkbfv.PN15QP880("cuda")
+        ev, ct0, ct1, rlk = setup_bfv(params, PARTIES)
+        dev = params.device
+
+        def mult():
+            return ev.mul_relin_new(ct0, ct1, rlk)
+
+        print(f"BFV PN15QP880, {PARTIES} parties, torch {torch.__version__}:"
+              f" mult+relin {median_ms(mult, REPS, dev):.3f} ms (CUDA "
+              f"events, median of {REPS}), {host_ms(mult, REPS, dev):.3f} "
+              "ms (host clock + synchronize)", flush=True)
+        print_trace(trace(mult, TRACE_CALLS, dev, args.trace), "bfv mult")
+        return
     params = mkckks.PN15QP880("cuda")
     ev, ct0, ct1, rlk = setup(params, PARTIES)
     res = profile(params, ev, ct0, ct1, rlk, REPS)

@@ -1,13 +1,15 @@
 """The mult profiler (mkhe_tpu_torch/profile_mult.py) at a small size on the
 CPU: the same code that breaks down the PN15QP880 mult on the card runs
-end to end, times every step, and counts no NTT kernel launch here."""
+end to end, times every step, and counts no NTT kernel launch here; its
+BFV operands decrypt to the product the trace's BFV spans compute."""
 
 import math
 
 import pytest
 import torch
 
-from mkhe_tpu_torch import mkckks, profile_mult
+from mkhe_tpu_torch import mkbfv, mkckks, profile_mult
+from mkhe_tpu_torch.ops.primes import ntt_primes
 
 torch.set_num_threads(1)
 
@@ -50,3 +52,20 @@ def test_trace_has_no_device_rows_on_cpu(ctx):
         "span_idle_share", "idle_in_op_share", "span_coverage",
         "unresolved_share"))
     assert math.isfinite(tr["spans_overhead"])
+
+
+def test_bfv_trace_opens_the_bfv_spans():
+    params = mkbfv.new_parameters(10, ntt_primes(10, 26.5, 6),
+                                  ntt_primes(10, 26.5, 6, skip=6),
+                                  ntt_primes(10, 28.4, 4), device="cpu")
+    ev, ct0, ct1, rlk = profile_mult.setup_bfv(params, 2, seed=7)
+    assert ct0.ids == ct1.ids == ("user0", "user1")
+    tr = profile_mult.trace(lambda: ev.mul_relin_new(ct0, ct1, rlk), 1,
+                            params.device)
+    spans = tr["spans"]
+    assert spans["bfv.mul_relin"][0] == 1
+    for name in ("bfv.lift", "bfv.rescale_qr", "bfv.tensor",
+                 "bfv.quantize", "ksw.aggregate", "ksw.v_sum"):
+        assert spans[name][0] == 1
+    assert spans["ksw.decompose"][0] == spans["ksw.mod_down"][0] == 2
+    assert tr["enqueue_ms"] == pytest.approx(spans["bfv.mul_relin"][3])

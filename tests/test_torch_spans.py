@@ -1,8 +1,9 @@
 """The program's spans (mkhe_tpu_torch/utils/profiling.py) on the CPU at
 logN 10: off, an op enters no record_function; on, under torch.profiler,
-mul_relin_new, mul_ptxt_new and the rotations open exactly the spans of
-their steps, nested as the code nests them, and compute the same bits as
-with the spans off. SpanTrace on synthetic event lists: device ops put
+mul_relin_new, mul_ptxt_new and the rotations, and the BFV mult, its
+hoisted form and hoisted mult, open exactly the spans of their steps,
+nested as the code nests them, and compute the same bits as with the
+spans off. SpanTrace on synthetic event lists: device ops put
 down through their correlation ids to the innermost span, idle gaps to
 spans, to a request outside the program and to the harness, request
 indices, coverage and the idle time inside top-level spans."""
@@ -38,6 +39,19 @@ TREES = {
     "rotate": [(0, "ckks.rotate"), (1, "ksw.decompose")] + SWITCH,
     "rotate_hoisted": [(0, "ckks.rotate")] + SWITCH,
 }
+# the BFV mult (mkbfv): the double-basis conversions, the tensor over R
+# and its quantize, and the key switch's steps as the CKKS mult has them
+BFV_MULT = [(0, "bfv.mul_relin"), (1, "bfv.lift"), (1, "bfv.rescale_qr"),
+            (1, "ksw.decompose"), (1, "ksw.aggregate"), (1, "bfv.tensor"),
+            (1, "bfv.quantize"), (1, "ksw.external_product"),
+            (1, "ksw.mod_down"), (1, "ksw.decompose"), (1, "ksw.v_sum"),
+            (1, "ksw.external_product"), (1, "ksw.mod_down")]
+BFV_TREES = {
+    "mul_relin": BFV_MULT,
+    "mul_relin_hoisted": [BFV_MULT[0]] + BFV_MULT[4:],
+    "hoisted_form": [(0, "ksw.decompose"), (1, "bfv.lift"),
+                     (1, "bfv.rescale_qr")],
+}
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +84,31 @@ def ctx():
         "rotate_hoisted": lambda: ev.rotate_hoisted_new(both, 1, hb, rtk),
     }
     return types.SimpleNamespace(params=params, ev=ev, rlk=rlk, ops=ops)
+
+
+@pytest.fixture(scope="module")
+def bfv_ops():
+    """BFV at logN 10 (6 + 6 limbs, P of 4, alpha 2), two parties."""
+    from mkhe_tpu_torch import mkbfv
+    from mkhe_tpu_torch.ops.primes import ntt_primes
+    params = mkbfv.new_parameters(10, ntt_primes(10, 26.5, 6),
+                                  ntt_primes(10, 26.5, 6, skip=6),
+                                  ntt_primes(10, 28.4, 4), device="cpu")
+    kgen = mkbfv.KeyGenerator(params, seed=7)
+    rlk, pks = mkbfv.RelinearizationKeySet(), {}
+    for uid in USERS:
+        sk, pks[uid] = kgen.gen_key_pair(uid)
+        rlk.add(kgen.gen_relinearization_key_bfv(sk, kgen.gen_secret_key(uid)))
+    enc = mkbfv.Encryptor(params, seed=8)
+    rng = np.random.default_rng(9)
+    ct0, ct1 = (enc.encrypt_msg(rng.integers(0, params.t, params.n), pks[u])
+                for u in USERS)
+    ev = mkbfv.Evaluator(params)
+    h0, h1 = ev.hoisted_form(ct0), ev.hoisted_form(ct1)
+    return {"mul_relin": lambda: ev.mul_relin_new(ct0, ct1, rlk),
+            "mul_relin_hoisted": lambda: ev.mul_relin_hoisted_new(h0, h1,
+                                                                  rlk),
+            "hoisted_form": lambda: ev.hoisted_form(ct0)}
 
 
 def _traced(fn):
@@ -121,6 +160,42 @@ def test_outputs_bit_identical_with_spans_on(ctx, op):
     on, _ = _traced(ctx.ops[op])
     assert on.ids == off.ids and on.scale == off.scale
     assert torch.equal(on.ct.data, off.ct.data)
+
+
+@pytest.mark.parametrize("op", sorted(BFV_TREES))
+def test_bfv_spans_name_and_nest_each_op(bfv_ops, op, monkeypatch):
+    """Off, a BFV op enters no record_function; on, it opens exactly the
+    spans of its steps, nested as the code nests them, no name inside
+    itself."""
+    entered = []
+    real = torch.profiler.record_function
+
+    def counted(name, *args, **kwargs):
+        entered.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    bfv_ops[op]()
+    assert entered == []
+    monkeypatch.setattr(torch.profiler, "record_function", real)
+    _, st = _traced(bfv_ops[op])
+    assert _tree(st) == BFV_TREES[op]
+    for s in st.spans:
+        p = s.parent
+        while p is not None:
+            assert st.spans[p].name != s.name
+            p = st.spans[p].parent
+
+
+@pytest.mark.parametrize("op", sorted(BFV_TREES))
+def test_bfv_outputs_bit_identical_with_spans_on(bfv_ops, op):
+    off = bfv_ops[op]()
+    on, _ = _traced(bfv_ops[op])
+    fields = ("lift", "resc", "dec_lift", "dec_resc") \
+        if op == "hoisted_form" else ("data",)
+    assert on.ids == off.ids
+    for f in fields:
+        assert torch.equal(getattr(on, f), getattr(off, f))
 
 
 def test_mul_relin_opens_once(ctx):
