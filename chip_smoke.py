@@ -48,9 +48,10 @@ Phases, one line each, then two JSON lines:
               encryptions -> Evaluator.mul_relin_new (mult + relin +
               rescale) -> decrypt, and one 2-party request; each decrypts
               within log2|err| <= -log2(scale) + logslots + 12; the NTT
-              and key-switching kernels' (mod_up, mod_down, mul_accum)
-              launch counters must grow during the phase, the rescale
-              kernel's by one a request;
+              and key-switching kernels' (decompose_ntt, mod_down,
+              mul_accum) launch counters must grow during the phase, the
+              rescale kernel's by one a request, and mod_up's stay at 0
+              (every decomposition is the fused one);
   5. bfv      the MKBFV path with the split NTT on (config.ntt_mxu_tail):
               PN15QP880, 4 parties, keys from the port's seeds on the card;
               two 4-party requests ((user0 + user1) x (user2 + user3))
@@ -59,8 +60,10 @@ Phases, one line each, then two JSON lines:
               each exactly equal to the plaintext product mod t; the
               split's launch counters (the fused forward, the fused
               inverse) and the key-switching kernels' must grow and the
-              full kernels', the head's, the tail's and the DIT-alone
-              mode's stay at 0; the last 4-party mult again with the
+              full kernels', the head's, the tail's, the DIT-alone
+              mode's and the fused decomposition's stay at 0 (with the
+              split on, a decomposition is mod_up, then the split
+              forward); the last 4-party mult again with the
               switch off, off and on must give the same ciphertext bit for
               bit;
   6. cnn      the two-party encrypted MNIST CNN (models/cnn.py, REF
@@ -77,7 +80,8 @@ Phases, one line each, then two JSON lines:
               a batched hoisted rotation over fc1's 7 indices equal to 7
               single ones bit for bit, and a conjugation that decrypts to
               the conjugate; the key-switched rotations of the requests
-              are counted (profile_cnn.count_rotations); then one more
+              are counted (profile_cnn.count_rotations); mod_up's
+              launches stay at 0 (every decomposition fused); then one more
               inference traced with the spans on (profile_cnn.op_profile):
               the device ms under the layers' spans cnn.conv, cnn.fc1 and
               cnn.fc2.
@@ -160,7 +164,15 @@ Phases, one line each, then two JSON lines:
               PN14QP433_CNN; each kernel's ms (single launches; mean of
               10; the rescale's also as a CUDA-graph replay, the device's
               time alone), its plain version's ms on the card and its
-              bound (keyswitch_bound).
+              bound (keyswitch_bound); then the fused decomposition
+              (csrc/ntt.cu::decompose_ntt_kernel, phase_decompose) at the
+              digits of both operands and of t, BFV's digits over R (4 x
+              56 limbs) and a CNN hoisting (2 x 14 at 2^14), each bit for
+              bit against its plain version and ring.ntt(decompose(x)),
+              its mean of 10 and the
+              composition's in turns beside the bound (the source read
+              once, the digits written once, int64), with ptxas's
+              registers and spills from phase 2.
 Then {"kernels": [...]} (launches summed over phases 4-6, as before phase
 7 existed, so phase 7's captured launches are not in them; ntt_variant's
 from phase 3b's probe run: the wrapper's launches, those captured into
@@ -211,8 +223,10 @@ VARIANT_CU = "mkhe_tpu_torch/csrc/ntt_variant.cu"
 KEYSWITCH_CU = "mkhe_tpu_torch/csrc/keyswitch.cu"
 DIGESTS = "tests/torch_seed_digests.json"
 KS_KERNELS = ("mod_up", "mod_down", "mul_accum")
-# phases 4 and 6 launch these; the rescale a CKKS request
-MAIN_COUNTS = ("ntt_fwd", "ntt_inv") + KS_KERNELS + ("rescale",)
+# phases 4 and 6 launch these; the rescale a CKKS request; every
+# decomposition there is the fused one (decompose_ntt), so no mod_up
+MAIN_COUNTS = ("ntt_fwd", "ntt_inv", "decompose_ntt", "mod_down",
+               "mul_accum", "rescale")
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
     ("ntt_inv", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
@@ -235,6 +249,9 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     ("mul_accum", KEYSWITCH_CU, "mkhe_tpu/mkrlwe/keyswitch.py:82"),
     # the CKKS rescale, div_round_by_last_moduli
     ("rescale", KEYSWITCH_CU, "mkhe_tpu/ops/basis.py:271"),
+    # the gadget digits (decompose_digits' mod_ups) and their forward NTT
+    # (_fwd_kernel) in one launch
+    ("decompose_ntt", NTT_CU, "mkhe_tpu/ops/basis.py:202"),
 )
 NTT_MAIN = KERNELS[:6]   # the NTT kernels whose launches phases 4-6 count
 MAIN = NTT_MAIN + KERNELS[7:]   # every kernel phases 4-6 count
@@ -267,13 +284,17 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
-def phase_build() -> None:
+def phase_build() -> list:
+    """Build and load the kernels; returns ptxas's lines (ptxas_lines),
+    empty where the library was already built."""
     t0 = time.perf_counter()
     log = ntt_cuda.build()
     ntt_cuda.load()
     secs = time.perf_counter() - t0
+    lines = ntt_cuda.ptxas_lines(log)
     print(f"[2 build] {secs:.2f} s -> {ntt_cuda.LIB_PATH.name}; "
-          f"ptxas: {' | '.join(ntt_cuda.ptxas_lines(log))}", flush=True)
+          f"ptxas: {' | '.join(lines)}", flush=True)
+    return lines
 
 
 def _rand(gen, shape, bound):
@@ -587,10 +608,11 @@ def phase_mult(params) -> dict:
     runs4 = [request(users) for _ in range(3)]
     ms2, err2 = request(users[:2])
     launches = _counters()
-    if min(launches[k] for k in MAIN_COUNTS) < 1 or launches["rescale"] != 4:
-        raise AssertionError(f"the main path missed a kernel or ran the "
-                             f"rescale other than once a request: "
-                             f"{launches}")
+    if (min(launches[k] for k in MAIN_COUNTS) < 1 or launches["rescale"] != 4
+            or launches["mod_up"]):
+        raise AssertionError(f"the main path missed a kernel, ran the "
+                             f"rescale other than once a request or "
+                             f"decomposed in two kernels: {launches}")
     ms4 = [ms for ms, _ in runs4]
     print(f"[4 mult] PN15QP880 logN {params.logn} L {params.max_level + 1} "
           f"+ {params.rlwe.pcount} P, alpha {params.rlwe.alpha}; keygen "
@@ -598,7 +620,7 @@ def phase_mult(params) -> dict:
           f"{[round(m, 3) for m in ms4]} median {statistics.median(ms4):.3f}"
           f", log2 err {max(e for _, e in runs4):.2f}; 2-party ms "
           f"{ms2:.3f}, log2 err {err2:.2f}; bound {bound:.2f}; launches "
-          f"{ {k: launches[k] for k in MAIN_COUNTS} }; "
+          f"{ {k: launches[k] for k in MAIN_COUNTS + ('mod_up',)} }; "
           f"peak mem {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     return launches
@@ -678,7 +700,7 @@ def phase_bfv(params) -> dict:
         launches = _counters()
         split = ("ntt_split_fwd", "ntt_split_inv")
         unsplit = ("ntt_tail", "ntt_inv_tailed", "ntt_fwd_head", "ntt_fwd",
-                   "ntt_inv")
+                   "ntt_inv", "decompose_ntt")
         if (min(launches[k] for k in split + KS_KERNELS) < 1
                 or any(launches[k] for k in unsplit)):
             raise AssertionError(f"the BFV path did not run the fused split "
@@ -735,8 +757,9 @@ def phase_cnn(params) -> dict:
     with profile_cnn.count_rotations() as rot:
         runs = [request(k) for k in range(3)]
     launches = _counters()
-    if min(launches[k] for k in MAIN_COUNTS) < 1:
-        raise AssertionError(f"the CNN missed a kernel: {launches}")
+    if min(launches[k] for k in MAIN_COUNTS) < 1 or launches["mod_up"]:
+        raise AssertionError(f"the CNN missed a kernel or decomposed in two "
+                             f"kernels: {launches}")
     # fc1's batched hoisted rotation against single ones, and conjugation
     _, _, img, ct = runs[-1]
     h = ev.hoisted_form(ct)
@@ -770,7 +793,7 @@ def phase_cnn(params) -> dict:
           f"{max(e for _, e, _, _ in runs):.3g} (rtol = atol = 5e-3), argmax "
           f"equal; batched hoisted rotation over {len(idxs)} indices "
           f"bit-identical to single ones; conjugation err {conj_err:.3g}; "
-          f"launches { {k: launches[k] for k in MAIN_COUNTS} }"
+          f"launches { {k: launches[k] for k in MAIN_COUNTS + ('mod_up',)} }"
           f"; peak mem {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     return launches
@@ -1463,6 +1486,105 @@ def keyswitch_bound(name: str, ins, out, width: int):
     return profile_ntt.bound(nbytes, ops)
 
 
+def _ptxas_of(lines: list, kernel: str) -> str:
+    """ptxas's spill and register lines of each instantiation of a kernel
+    (ptxas_lines' form), "not built here" where the library was built
+    before."""
+    out = []
+    for i, name in enumerate(lines):
+        if name == kernel or name.startswith(kernel + "<"):
+            out.append(name + ": " + ", ".join(
+                ln for ln in lines[i + 1:i + 3]
+                if "spill" in ln or "registers" in ln))
+    return "; ".join(out) or "not built here"
+
+
+def phase_decompose(params, params_bfv, params_cnn, ptxas: list) -> dict:
+    """The fused decomposition (csrc/ntt.cu::decompose_ntt_kernel) at the
+    digit shapes of a 4-party PN15QP880 mult (both operands, t), of the
+    BFV mult over R and of a CNN hoisting, the float32 v boundary in every
+    digit: bit for bit against the plain version (decompose_ntt_plain, the
+    max_abs_err reported) and against the composition it replaces
+    (ring.ntt(basis_cuda.decompose(x))), one launch counted; its mean of 10
+    and the composition's in turns (fused, composition, composition,
+    fused), each beside the bound (the source read once, the digits
+    written once, int64); ptxas's registers and spills. Returns the
+    {"kernels"} line's stats (the digits of both operands)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 41)
+    dev, bc = torch.device("cuda"), basis_cuda
+    rp, rc = params.rlwe, params_cnn.rlwe
+    rq, rqp = rp.ring_q_at(params.max_level), rp.ring_qp_at(params.max_level)
+    cq = rc.ring_q_at(params_cnn.max_level)
+    cqp = rc.ring_qp_at(params_cnn.max_level)
+    r_bfv, qp_bfv = params_bfv.ring_r, params_bfv.rlwe.ring_qp
+    cases = [("digits of both operands (8, 28) -> (8, 14, 32) x 2^15", 8, rq,
+              rqp, rp.alpha),
+             ("digits of t (4, 28) -> (4, 14, 32) x 2^15", 4, rq, rqp,
+              rp.alpha),
+             ("BFV R digits (4, 56) -> (4, 28, 32) x 2^15", 4, r_bfv, qp_bfv,
+              params_bfv.rlwe.alpha),
+             ("CNN hoisting (2, 14) -> (2, 7, 18) x 2^14", 2, cq, cqp,
+              rc.alpha)]
+    rows, mism, mism_plain, err = [], 0, 0, 0
+    for label, polys, src, dst, alpha in cases:
+        x = _rand(gen, (polys, src.nlimbs, src.n), src.q[:, None])
+        v32, exact = bc.v_floors(x, src.moduli, alpha)
+        if not (v32 != exact).any():
+            x = bc.plant_v_boundary(x, src.moduli, alpha, [3, src.n - 5])
+        t = bc.digit_tables(src.moduli, dst.moduli, alpha, dev)
+        bc.reset_counters()
+        got = bc.decompose_ntt(x, t, dst)
+        torch.cuda.synchronize()
+        if bc.counters()["decompose_ntt"] != 1:
+            raise AssertionError(f"{label}: {bc.counters()}")
+        plain = bc.decompose_ntt_plain(x, t, dst)
+        mism_plain += int((got != plain).sum())
+        err = max(err, int((got - plain).abs().max()))
+        del plain
+        want = dst.ntt(bc.decompose(x, t))
+        torch.cuda.synchronize()
+        mism += int((got != want).sum())
+        fused = lambda: bc.decompose_ntt(x, t, dst)
+        comp = lambda: dst.ntt(bc.decompose(x, t))
+        turns = [cuda_ms(f, 20) for f in (fused, comp, comp, fused)]
+        b_ms, b_by = profile_ntt.bound(8 * (x.numel() + got.numel()))
+        rows.append(dict(label=label, fused=(turns[0], turns[3]),
+                         comp=(turns[1], turns[2]), bound_ms=b_ms,
+                         bound_by=b_by, x=x, t=t, dst=dst))
+        del got, want
+    if mism or mism_plain:
+        raise AssertionError(f"the fused decomposition differs from the "
+                             f"plain version in {mism_plain} values (max "
+                             f"abs err {err}), from the composition in "
+                             f"{mism}")
+    r0 = rows[0]
+    stats = dict(max_abs_err=err,
+                 ms=cuda_ms(lambda: bc.decompose_ntt(r0["x"], r0["t"],
+                                                     r0["dst"]), 20, 1),
+                 ms_mean10=statistics.mean(r0["fused"]),
+                 plain_ms=cuda_ms(lambda: bc.decompose_ntt_plain(
+                     r0["x"], r0["t"], r0["dst"]), 3, 1),
+                 bound_ms=r0["bound_ms"], bound_by=r0["bound_by"])
+    print("[11 decompose] decompose_ntt_kernel (ptxas: "
+          f"{_ptxas_of(ptxas, 'decompose_ntt_kernel')}): mismatches "
+          f"{mism_plain} against the plain version (max abs err {err}), "
+          f"{mism} against ntt(decompose); mean of 10 fused, then mod_up + "
+          "ntt, in "
+          "turns, bound and share: "
+          + "; ".join(f"{r['label']}: fused {r['fused'][0]:.4f} / "
+                      f"{r['fused'][1]:.4f}, mod_up + ntt {r['comp'][0]:.4f}"
+                      f" / {r['comp'][1]:.4f}, bound {r['bound_ms']:.4f} "
+                      f"({r['bound_by']}, "
+                      f"{r['bound_ms'] / statistics.mean(r['fused']):.1%} "
+                      f"fused, "
+                      f"{r['bound_ms'] / statistics.mean(r['comp']):.1%} "
+                      "composition)" for r in rows)
+          + f"; plain ms {stats['plain_ms']:.4f} (the first shape)",
+          flush=True)
+    return stats
+
+
 def phase_keyswitch(params, params_bfv, params_cnn) -> dict:
     """The key-switching kernels (csrc/keyswitch.cu) against their plain
     versions on the card, bit for bit, at the full shapes of one 4-party
@@ -1597,7 +1719,7 @@ def phase_keyswitch(params, params_bfv, params_cnn) -> dict:
 
 def main() -> None:
     device = phase_device()
-    phase_build()
+    ptxas = phase_build()
     params = mkckks.PN15QP880("cuda")
     params_cnn = mkckks.PN14QP433_CNN("cuda")
     stats = phase_kernels(params.rlwe.ring_qp, params_cnn.rlwe.ring_qp)
@@ -1612,7 +1734,9 @@ def main() -> None:
     phase_parallel(params, params_bfv)
     phase_seeds()
     ks = phase_keyswitch(params, params_bfv, params_cnn)
-    for name in KS_KERNELS + ("rescale",):
+    ks["decompose_ntt"] = phase_decompose(params, params_bfv, params_cnn,
+                                          ptxas)
+    for name in KS_KERNELS + ("rescale", "decompose_ntt"):
         stats[name] = dict(ks[name], launches=stats[name]["launches"])
     stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [

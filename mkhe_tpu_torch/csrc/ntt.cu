@@ -66,6 +66,32 @@
 //   cluster (distributed shared memory, two polynomials per SM) measured
 //   slower (PERF.md) and is not kept.
 // No tensor cores: a 32-bit modular butterfly has no wgmma form.
+//
+// decompose_ntt_kernel: the gadget decomposition and the forward NTT of its
+// digits in one launch (ops/basis.py::decompose_ntt). It replaces
+// csrc/keyswitch.cu's basis_kernel<.., false> followed by ntt_kernel<true>,
+// whose (P, beta, Ld, N) digit tensor had no other reader: the basis
+// kernel wrote it to HBM and the NTT's first pass read it back, 2 x 1.41 GB
+// in a 4-party PN15QP880 mult. Here the forward kernel's first pass computes
+// each value it would have read: polynomial (p, k, j) of the output (digit
+// k of party polynomial p on output limb j, j fastest, so the Ld blocks of
+// one digit read the same <= 2 source limbs and find them in L2) takes
+// the basis kernel's residue for its coefficients (`digit_values`: the
+// words of ops/basis_cuda.py::pack_table, the same float32 v added left to
+// right), writes it to the thread's own slots in shared memory and runs
+// the pass from there. Every output limb goes through the formula, the
+// digit's own limbs included, as in the basis kernel, so the output is bit
+// for bit ring.ntt(basis_cuda.decompose(x)). What bounds it: the digits'
+// int64 words written once and the source read once from HBM (the other
+// Ld - 1 reads hit L2), but in practice the integer pipe: a digit value
+// costs ~25 integer instructions (the v correction folded into the sum's
+// one Montgomery reduction, left lazy below 3q) on top of the NTT's ~60.
+// So it takes the main path's shape alone, digits of two limbs at logN 14
+// or 15, with both fixed at compile time: the digit words stay in
+// registers, and every pass's offsets and strides fold into the
+// addresses; the first pass computes 8 values at a time, which keeps it at
+// 64 registers with no spill. Every other shape keeps the basis kernel
+// and ntt_kernel<true> (ops/basis.py::fuses).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,6 +102,8 @@ constexpr int kLogVals = 5;  // a thread holds 2^5 coefficients
 constexpr int kMaxPassBits = 5;  // stages of one register pass
 constexpr int kMaxThreads = (1 << 15) >> kLogVals;
 
+constexpr int kChunk = 8;  // digit values a thread computes at once
+
 struct Args {
   const int64_t* x;
   int64_t* out;
@@ -85,6 +113,12 @@ struct Args {
   const int64_t* ninv;     // inverse only
   const int64_t* ninv_sh;  // inverse only
   int n_polys, L, logn, log_polys;
+  // decompose_ntt_kernel only: x is the source (P, >= ls limbs, N) by its
+  // strides sxp, sxl (N contiguous), digits of two limbs (the last may
+  // hold one), dig the digits' table words; out is (P, beta, L, N).
+  const uint32_t* dig;
+  int64_t sxp, sxl;
+  int ls, beta;
 };
 
 // a - m if a >= m else a, for a < 2m < 2^32 (a - m wraps above a when
@@ -103,6 +137,15 @@ __device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w,
 __device__ __forceinline__ uint32_t barrett_lazy(uint32_t a, uint32_t q,
                                                  uint32_t bar) {
   return a - __umulhi(a, bar) * q;
+}
+
+// t 2^-32 mod q, canonical, for t < q 2^32 (Montgomery REDC; qn = -q^-1
+// mod 2^32).
+__device__ __forceinline__ uint32_t redc(uint64_t t, uint32_t q,
+                                         uint32_t qn) {
+  const uint32_t m = static_cast<uint32_t>(t) * qn;
+  return csub(static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32),
+              q);
 }
 
 // Cooley-Tukey: x, y in [0, 4q) -> x + w y, x - w y in [0, 4q).
@@ -228,13 +271,110 @@ __device__ __forceinline__ int limb_of(const Args& a, const Span& sp, int e) {
   return a.log_polys ? (sp.limb0 + (e >> a.logn)) % a.L : sp.limb0;
 }
 
+// The gadget digit values of one group of a pass (decompose_ntt_kernel's
+// first): the C coefficients base | c << lo of the block's polynomial (p,
+// k, j), j = limb, digit k of party polynomial p on output limb j, each
+// the residue csrc/keyswitch.cu::basis_kernel gives: y_i = x_i (B_k /
+// b_i)^-1 mod b_i over the digit's lsd limbs (REDC, canonical), v =
+// floor(fl32(y_0) fl32(1 / b_0) + fl32(y_1) fl32(1 / b_1)) in float32
+// (v lies in [0, lsd]: each term is at most 1), then (sum_i y_i (B_k /
+// b_i) - v B_k) mod d_j. Here that is one Montgomery reduction of sum_i
+// y_i qhat_ij + v cv, qhat_ij = (B_k / b_i) 2^32 mod d_j and cv = -B_k
+// 2^32 mod d_j = -b_0 qhat_0j mod d_j (one 64-bit remainder a group), left
+// lazy in [0, 3q): the butterflies take values below 4q and the
+// transform's canonical output is the same. Digits of kAlpha = 2 limbs
+// (the last may hold one), the words in registers; written to the
+// thread's own slots s[pb + offset(c)] (the pass reads them back, so no
+// barrier), kChunk at a time: a chunk's loads and sums are what the
+// registers hold. Table words (ops/basis_cuda.py::pack_table): 4 a dst
+// limb (d_j, -d_j^-1 mod 2^32, floor(2^32 / d_j), 0), then digit k at 4 L
+// + k ds: 4 a source limb (b_i, -b_i^-1 mod 2^32, (B_k / b_i)^-1 in
+// Montgomery form, float32 bits of 1 / b_i), qhat_ij at 4 kAlpha + i L +
+// j. A polynomial past the last reads 0.
+constexpr int kAlpha = 2;
+
+__device__ __forceinline__ uint32_t floor_v(float vf, int lsd) {
+  // vf in [0, 2^23): rounding vf + 2^23 down leaves floor(vf) in the
+  // mantissa
+  return min(static_cast<uint32_t>(__float_as_int(__fadd_rd(vf, 8388608.0f)) -
+                                   0x4B000000),
+             static_cast<uint32_t>(lsd));
+}
+
+template <int kMode, int C>
+__device__ __forceinline__ void digit_values(const Args& a, const Span& sp,
+                                             uint32_t* s, int base, int pb,
+                                             int lo, int stride, int j) {
+  if (base >= sp.valid) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[pb + offset<kMode>(c, lo, stride)] = 0;
+    return;
+  }
+  const int64_t pk = static_cast<int64_t>((sp.gbase + base) >> a.logn) / a.L;
+  const int k = static_cast<int>(pk % a.beta);
+  const int64_t p = pk / a.beta;
+  const int first = k * kAlpha;
+  const int lsd = min(kAlpha, a.ls - first);
+  const uint32_t* src =
+      a.dig + 4 * a.L + k * (4 * kAlpha + kAlpha * a.L + a.L * (kAlpha + 1));
+  const uint32_t* qhat = src + 4 * kAlpha + j;
+  const uint32_t q = __ldg(a.dig + 4 * j), qn = __ldg(a.dig + 4 * j + 1),
+                 bar = __ldg(a.dig + 4 * j + 2);
+  const uint32_t bm = static_cast<uint32_t>(
+      static_cast<uint64_t>(__ldg(src)) * __ldg(qhat) % q);
+  const uint32_t cv = bm ? q - bm : 0u;
+  const int64_t* x = a.x + p * a.sxp + first * a.sxl +
+                     (base & ((1 << a.logn) - 1));
+  // a one-limb last digit reads its limb twice with a zero multiplier:
+  // y_1 = 0 adds nothing to the sum or to v
+  const int64_t* x1 = lsd > 1 ? x + a.sxl : x;
+  const uint32_t b0 = __ldg(src), bn0 = __ldg(src + 1), w0 = __ldg(src + 2);
+  const float ib0 = __uint_as_float(__ldg(src + 3));
+  const uint32_t b1 = __ldg(src + 4), bn1 = __ldg(src + 5),
+                 w1 = lsd > 1 ? __ldg(src + 6) : 0u;
+  const float ib1 = __uint_as_float(__ldg(src + 7));
+  const uint32_t h0 = __ldg(qhat), h1 = __ldg(qhat + a.L);
+  constexpr int U = C < kChunk ? C : kChunk;
+  static_assert(C % U == 0, "a group is whole chunks");
+#pragma unroll 1
+  for (int c0 = 0; c0 < C; c0 += U) {
+    uint32_t xa[U], xb[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {  // the int64's low word holds the value
+      xa[u] = __ldg(reinterpret_cast<const unsigned int*>(
+          x + ((c0 + u) << lo)));
+      xb[u] = __ldg(reinterpret_cast<const unsigned int*>(
+          x1 + ((c0 + u) << lo)));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint32_t y0 = redc(static_cast<uint64_t>(xa[u]) * w0, b0, bn0);
+      const uint32_t y1 = redc(static_cast<uint64_t>(xb[u]) * w1, b1, bn1);
+      const float vf = __fadd_rn(__fmul_rn(__uint2float_rn(y0), ib0),
+                                 __fmul_rn(__uint2float_rn(y1), ib1));
+      // the sum's Montgomery reduction, lazy: [0, 2q) + [0, q]
+      const uint64_t acc = static_cast<uint64_t>(y0) * h0 +
+                           static_cast<uint64_t>(y1) * h1 +
+                           static_cast<uint64_t>(floor_v(vf, lsd)) * cv;
+      const uint32_t lw = static_cast<uint32_t>(acc);
+      s[pb + offset<kMode>(c0 + u, lo, stride)] =
+          barrett_lazy(static_cast<uint32_t>(acc >> 32), q, bar) +
+          static_cast<uint32_t>(
+              (static_cast<uint64_t>(lw) + static_cast<uint64_t>(lw * qn) * q)
+              >> 32);
+    }
+  }
+}
+
 // One register pass of R stages over bits [lo, lo + R) of every
 // polynomial in the block: each of the thread's G = 2^kLogVals / 2^R
 // groups of 2^R values is read, transformed and written in turn, from and
 // to shared memory unless kHbm says otherwise: bit 1 reads HBM (reducing
 // by Barrett), bit 2 writes it; at lo = 0 (kMode 0) through the warp's
-// own part of shared memory, else word by word. The last pass (kLast)
-// makes the values canonical (and, in the inverse, multiplies by N^-1).
+// own part of shared memory, else word by word; bit 4 computes the values
+// as gadget digits first (digit_values). The last
+// pass (kLast) makes the values canonical (and, in the inverse, multiplies
+// by N^-1).
 template <bool kFwd, int R, int kMode, bool kLast, int kHbm>
 __device__ __forceinline__ void run_pass(const Args& a, const Span& sp,
                                          uint32_t* s, int lo) {
@@ -257,6 +397,8 @@ __device__ __forceinline__ void run_pass(const Args& a, const Span& sp,
     const uint32_t q2 = 2 * q;
     const int pb = padded(base);
     uint32_t v[C];
+    if (kHbm & 4)
+      digit_values<kMode, C>(a, sp, s, base, pb, lo, stride, limb);
     if ((kHbm & 1) && kMode == 0) {
 #pragma unroll
       for (int k = 0; k < C / 2; ++k) {
@@ -338,6 +480,16 @@ __device__ __forceinline__ int pass_bits(int logn, int k, int npasses) {
   return k < npasses - 1 ? kMaxPassBits : logn - kMaxPassBits * k;
 }
 
+// The block's polynomials.
+__device__ __forceinline__ Span span_of(const Args& a) {
+  const int size = 1 << (a.logn + a.log_polys);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) << a.log_polys;
+  const int64_t left = (static_cast<int64_t>(a.n_polys) - first) << a.logn;
+  return Span{static_cast<size_t>(first) << a.logn,
+              static_cast<int>(left < size ? left : size),
+              static_cast<int>(first % a.L)};
+}
+
 // The passes of pass_bits, each with the address form of its lo: the
 // forward's passes at lo = logN - 5, logN - 10, ... (form 1 if lo >= 5,
 // else 2) and its last at lo = 0; the inverse's first at lo = 0 and the
@@ -389,12 +541,7 @@ template <bool kFwd>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ntt_kernel(const Args a) {
   extern __shared__ uint32_t smem[];
-  const int size = 1 << (a.logn + a.log_polys);
-  const int64_t first = static_cast<int64_t>(blockIdx.x) << a.log_polys;
-  const int64_t left = (static_cast<int64_t>(a.n_polys) - first) << a.logn;
-  const Span sp{static_cast<size_t>(first) << a.logn,
-                static_cast<int>(left < size ? left : size),
-                static_cast<int>(first % a.L)};
+  const Span sp = span_of(a);
   const int npasses = (a.logn + kMaxPassBits - 1) / kMaxPassBits;
   int lo = kFwd ? a.logn : 0;
   for (int k = 0; k < npasses; ++k) {
@@ -408,6 +555,39 @@ ntt_kernel(const Args a) {
     }
     if (!kFwd) lo += r;
   }
+}
+
+
+// The forward passes at a compile-time logN from pass K on (lo kLo before
+// it), each in the address form first_or_middle and last give it: every
+// lo is a constant, so the offsets and strides fold. The first computes
+// its input as gadget digits of two limbs.
+template <int kLogN, int K, int kLo>
+__device__ __forceinline__ void fixed_passes(const Args& a, const Span& sp,
+                                             uint32_t* s) {
+  constexpr int kPasses = (kLogN + kMaxPassBits - 1) / kMaxPassBits;
+  static_assert(kPasses > 1, "the first pass is not the last");
+  if constexpr (K < kPasses - 1) {
+    constexpr int lo = kLo - kMaxPassBits;
+    run_pass<true, kMaxPassBits, lo >= 5 ? 1 : 2, false, K == 0 ? 4 : 0>(
+        a, sp, s, lo);
+    __syncthreads();
+    fixed_passes<kLogN, K + 1, lo>(a, sp, s);
+  } else {
+    run_pass<true, kLo, 0, true, 2>(a, sp, s, 0);
+  }
+}
+
+// The digits of the gadget decomposition in the NTT domain (see the
+// file's note): the forward kernel with its first pass computing its
+// input, for digits of two limbs at logN kLogN (14 or 15).
+template <int kLogN>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+decompose_ntt_kernel(const Args in) {
+  extern __shared__ uint32_t smem[];
+  Args a = in;
+  a.logn = kLogN;
+  fixed_passes<kLogN, 0, kLogN>(a, span_of(a), smem);
 }
 
 // The launcher's geometry against what the kernel needs.
@@ -425,17 +605,16 @@ bool geometry_ok(const Args& a, int blocks, int threads, int smem) {
          (static_cast<int64_t>(blocks - 1) << a.log_polys) < a.n_polys;
 }
 
-template <bool kFwd>
-int launch(const Args& a, int blocks, int threads, int smem, void* stream) {
+int launch(void (*kernel)(Args), const Args& a, int blocks, int threads,
+           int smem, void* stream) {
   if (!geometry_ok(a, blocks, threads, smem))
     return static_cast<int>(cudaErrorInvalidValue);
   // Above 48 KiB of dynamic shared memory the launch is refused unless
   // the kernel has opted in.
   cudaError_t err = cudaFuncSetAttribute(
-      ntt_kernel<kFwd>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_kernel<kFwd><<<blocks, threads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -455,7 +634,7 @@ extern "C" int mkhe_ntt_fwd(const void* x, void* out, const void* pack,
                static_cast<const int64_t*>(q),
                static_cast<const int64_t*>(bar), nullptr, nullptr,
                n_polys, L, logn, log_polys};
-  return launch<true>(a, blocks, threads, smem, stream);
+  return launch(ntt_kernel<true>, a, blocks, threads, smem, stream);
 }
 
 extern "C" int mkhe_ntt_inv(const void* x, void* out, const void* pack,
@@ -470,5 +649,38 @@ extern "C" int mkhe_ntt_inv(const void* x, void* out, const void* pack,
                static_cast<const int64_t*>(ninv),
                static_cast<const int64_t*>(ninv_sh),
                n_polys, L, logn, log_polys};
-  return launch<false>(a, blocks, threads, smem, stream);
+  return launch(ntt_kernel<false>, a, blocks, threads, smem, stream);
+}
+
+// The gadget digits of x (P, >= ls limbs, N; element strides sxp, sxl, N
+// contiguous), two source limbs a digit (beta digits, the last possibly
+// one), each extended to the L limbs of the ring and transformed: out (P,
+// beta, L, N) contiguous, n_polys = P beta L, logN 14 or 15. pack, q, bar
+// are the ring's forward NTT tables (as mkhe_ntt_fwd), dig the digits'
+// words (ops/basis_cuda.py::pack_table(src, ring moduli, 2)); the geometry
+// is ops/ntt_cuda.py::geometry(logn, n_polys)'s.
+extern "C" int mkhe_decompose_ntt(const void* x, long long sxp,
+                                  long long sxl, void* out, const void* pack,
+                                  const void* q, const void* bar,
+                                  const void* dig, int ls, int alpha,
+                                  int beta, int n_polys, int L, int logn,
+                                  int log_polys, int blocks, int threads,
+                                  int smem, void* stream) {
+  if (alpha != kAlpha || beta < 1 || ls < 1 || (beta - 1) * alpha >= ls ||
+      static_cast<long long>(beta) * alpha < ls || L < 1 ||
+      n_polys % (static_cast<long long>(beta) * L) != 0 || dig == nullptr ||
+      (logn != 14 && logn != 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
+         static_cast<const uint64_t*>(pack), static_cast<const int64_t*>(q),
+         static_cast<const int64_t*>(bar), nullptr, nullptr,
+         n_polys, L, logn, log_polys};
+  a.dig = static_cast<const uint32_t*>(dig);
+  a.sxp = sxp;
+  a.sxl = sxl;
+  a.ls = ls;
+  a.beta = beta;
+  void (*kernel)(Args) = decompose_ntt_kernel<14>;
+  if (logn == 15) kernel = decompose_ntt_kernel<15>;
+  return launch(kernel, a, blocks, threads, smem, stream);
 }

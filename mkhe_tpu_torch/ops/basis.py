@@ -13,7 +13,10 @@ correction, as in the reference's FastBasisExtender):
 mod_up (and with it the digits of decompose_digits), mod_down and the
 rescale run on the hand-written kernels of csrc/keyswitch.cu for a CUDA
 tensor and their plain versions for a CPU tensor (ops/basis_cuda.py,
-which also holds the tables).
+which also holds the tables). decompose_ntt on a CUDA tensor is one
+launch of csrc/ntt.cu's decompose_ntt_kernel for the main path's digits
+(two limbs at logN 14 or 15) wherever the ring's ntt would launch the
+full forward kernel on them (`fuses`).
 
 Every output here is canonical. Where the JAX package returns lazy
 values (mod_up(lazy=True) < 4q), the canonical value is the same residue
@@ -70,10 +73,27 @@ def decompose_digits(x, src_ring: Ring, dst_ring: Ring, alpha: int
         src_ring.moduli, dst_ring.moduli, alpha, dst_ring.device))
 
 
+def fuses(device: torch.device, dst_ring: Ring, alpha: int) -> bool:
+    """Whether decompose_ntt takes basis_cuda.decompose_ntt's one launch:
+    on a CUDA tensor, with the shape its kernel takes (digits of two limbs
+    at a logN of basis_cuda.DECOMPOSE_NTT_LOGNS), into a ring whose ntt is
+    the full forward kernel (Ring.full_forward)."""
+    return (device.type == "cuda" and alpha == 2
+            and dst_ring.logn in basis_cuda.DECOMPOSE_NTT_LOGNS
+            and dst_ring.full_forward())
+
+
 def decompose_ntt(x, src_ring: Ring, dst_ring: Ring, alpha: int
                   ) -> torch.Tensor:
     """Gadget decomposition + forward NTT into the dst basis: coeff-domain
-    (..., Ls, N) -> canonical NTT-domain digits (..., beta, Ld, N)."""
+    (..., Ls, N) -> canonical NTT-domain digits (..., beta, Ld, N). One
+    launch where `fuses` says so, else dst_ring.ntt of decompose_digits
+    (the CPU route, other digit widths or logN, a sharded ring, the split
+    NTT); the same values either way."""
+    if fuses(x.device, dst_ring, alpha):
+        return basis_cuda.decompose_ntt(x, digit_tables(
+            src_ring.moduli, dst_ring.moduli, alpha, dst_ring.device),
+            dst_ring)
     return dst_ring.ntt(decompose_digits(x, src_ring, dst_ring, alpha))
 
 

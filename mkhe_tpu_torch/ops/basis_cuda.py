@@ -18,11 +18,18 @@ counterpart):
   rescale    rescale_kernel: the CKKS rescale, mkhe_tpu/ops/basis.py's
              div_round_by_last_moduli, every dropped limb in one pass.
 
+and of csrc/ntt.cu's decompose_ntt_kernel, the gadget digits and their
+forward NTT in one launch (`decompose_ntt`: ring.ntt(decompose(x)) bit for
+bit, without the digit tensor in between), which ops/basis.py::
+decompose_ntt takes for the main path's digits (two limbs, logN 14 or 15)
+wherever the ring's ntt is the full forward kernel.
+
 Every wrapper dispatches on the tensor's device: a CPU tensor goes to the
-plain version (`mod_up_plain`, `decompose_plain`, `mod_down_plain`,
-`mul_accum_plain`, `rescale_plain`: the int64 torch code the port ran
-before the kernels, unchanged in result), a CUDA tensor launches the
-kernel or raises. There is no fallback from one to the other. The
+plain version (`mod_up_plain`, `decompose_plain`, `decompose_ntt_plain`,
+`mod_down_plain`, `mul_accum_plain`, `rescale_plain`: the int64 torch code
+the port ran before the kernels, unchanged in result), a CUDA tensor
+launches the kernel or raises. There is no fallback from one to the
+other. The
 wrappers check shapes and devices on both routes, allocate outputs with
 torch and launch on the current stream without a host sync, so a launch
 can be captured into a CUDA graph (fuse.py); the tables are built once
@@ -64,19 +71,23 @@ mod_up_launches = 0
 mod_down_launches = 0
 mul_accum_launches = 0
 rescale_launches = 0
+decompose_ntt_launches = 0
 
 
 def reset_counters() -> None:
     global mod_up_launches, mod_down_launches, mul_accum_launches
-    global rescale_launches
+    global rescale_launches, decompose_ntt_launches
     mod_up_launches = mod_down_launches = mul_accum_launches = 0
-    rescale_launches = 0
+    rescale_launches = decompose_ntt_launches = 0
 
 
 def counters() -> dict:
-    """Launches of each kernel since the last reset_counters()."""
+    """Launches of each kernel since the last reset_counters()
+    (`decompose_ntt`: the fused digits; a decomposition that takes the
+    composition counts one `mod_up` and one `ntt_fwd` instead)."""
     return {"mod_up": mod_up_launches, "mod_down": mod_down_launches,
-            "mul_accum": mul_accum_launches, "rescale": rescale_launches}
+            "mul_accum": mul_accum_launches, "rescale": rescale_launches,
+            "decompose_ntt": decompose_ntt_launches}
 
 
 @functools.lru_cache(maxsize=1)
@@ -93,6 +104,9 @@ def load() -> ctypes.CDLL:
     lib.mkhe_mul_accum.restype = ci
     lib.mkhe_rescale.argtypes = [vp, ll, ll, vp, vp, ll, ci, ci, ci, vp]
     lib.mkhe_rescale.restype = ci
+    lib.mkhe_decompose_ntt.argtypes = [vp, ll, ll] + [vp] * 5 + \
+        [ci] * 10 + [vp]
+    lib.mkhe_decompose_ntt.restype = ci
     return lib
 
 
@@ -506,6 +520,56 @@ def decompose(x, t: DigitTables) -> torch.Tensor:
     return out.view(*x.shape[:-2], beta, ld, x.shape[-1])
 
 
+DECOMPOSE_NTT_LOGNS = (14, 15)   # decompose_ntt_kernel's instantiations
+
+
+def decompose_ntt(x, t: DigitTables, ring: Ring) -> torch.Tensor:
+    """The gadget digits of coefficient-domain (..., Ls, N), each extended
+    to the ring's basis (t's dst) and in its NTT domain, canonical
+    (..., beta, Ld, N): ntt_cuda.ntt of decompose(x, t), bit for bit. On a
+    CUDA tensor one launch of csrc/ntt.cu's decompose_ntt_kernel (the
+    forward kernel with the digits computed in its first pass: they never
+    reach device memory; x read by its strides, so a level-dropped view is
+    read in place), which takes digits of two limbs at a logN of
+    DECOMPOSE_NTT_LOGNS and raises otherwise; `decompose_ntt_plain` on a
+    CPU tensor."""
+    global decompose_ntt_launches
+    ls = sum(len(d.src_moduli) for d in t.digits)
+    beta, ld = len(t.digits), len(t.digits[0].dst_moduli)
+    _check_on(x, t.pack, ring.q)
+    _check_limbs(x, ls)
+    if ring.moduli != t.digits[0].dst_moduli:
+        raise ValueError("decompose_ntt: the ring is not the digits' "
+                         "destination basis")
+    if not _route(x):
+        return decompose_ntt_plain(x, t, ring)
+    if t.alpha != 2 or ring.logn not in DECOMPOSE_NTT_LOGNS:
+        raise ValueError(f"decompose_ntt: the kernel takes digits of two "
+                         f"limbs at logN {DECOMPOSE_NTT_LOGNS}, not alpha "
+                         f"{t.alpha} at logN {ring.logn}")
+    x3 = polys(x, ls)
+    n_polys, _, n = x3.shape
+    out = torch.empty((n_polys, beta, ld, n), dtype=torch.int64,
+                      device=x.device)
+    shape = ntt_cuda._check_full(out, (ring.psi, ring.psi_sh), ring.psi_pack,
+                                 (ring.q, ring.bar))
+    if out.numel():
+        geom = ntt_cuda.geometry(shape[2], shape[0])
+        guard, stream = _on(x.device)
+        with guard:
+            err = load().mkhe_decompose_ntt(
+                x3.data_ptr(), x3.stride(0), x3.stride(1), out.data_ptr(),
+                ring.psi_pack.data_ptr(), ring.q.data_ptr(),
+                ring.bar.data_ptr(), t.pack.data_ptr(), ls, t.alpha, beta,
+                shape[0], ld, shape[2], geom.log_polys, geom.blocks,
+                geom.threads, geom.smem, stream)
+        if err != 0:
+            raise RuntimeError(f"mkhe_decompose_ntt launch failed: CUDA "
+                               f"error {err}")
+        decompose_ntt_launches += 1
+    return out.view(*x.shape[:-2], beta, ld, n)
+
+
 def mod_down(xq, xp, t: ModDownTables) -> torch.Tensor:
     """Divide-and-round by P: (xq, xp) (..., Lq, N) and (..., Lp, N) in
     basis QP, canonical (any u32 on xq) -> round(x / P) in basis Q,
@@ -624,6 +688,13 @@ def decompose_plain(x, t: DigitTables) -> torch.Tensor:
                                        k * t.alpha + len(d.src_moduli), :],
                                      d)
                         for k, d in enumerate(t.digits)], dim=-3)
+
+
+def decompose_ntt_plain(x, t: DigitTables, ring: Ring) -> torch.Tensor:
+    """decompose_ntt as the composition it fuses: decompose_plain, then
+    the plain forward NTT."""
+    return ntt_cuda.ntt_plain(decompose_plain(x, t), ring.q, ring.bar,
+                              ring.psi, ring.psi_sh)
 
 
 def rescale_plain(x, ring_q: Ring, nb: int) -> torch.Tensor:

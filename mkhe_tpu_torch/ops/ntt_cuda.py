@@ -189,11 +189,14 @@ def build() -> str:
 
 def kernel_name(mangled: str) -> str:
     """A kernel's name and integer template arguments from its mangled
-    name (`ntt_split_inv_kernel<15,1>`), else the name's last 45
-    characters."""
-    m = re.search(r"\d+([a-z][a-z_]*kernel)I((?:L[a-z]\d+E)+)E", mangled)
+    name (`ntt_split_inv_kernel<15,1>`, or `decompose_ntt_kernel` for one
+    that is no template), else the name's last 45 characters."""
+    m = re.search(r"\d+([a-z][a-z_]*kernel)(?:I((?:L[a-z]\d+E)+)E)?",
+                  mangled)
     if not m:
         return mangled[-45:]
+    if m.group(2) is None:
+        return m.group(1)
     return f"{m.group(1)}<{','.join(re.findall(r'L[a-z](\d+)E', m.group(2)))}>"
 
 

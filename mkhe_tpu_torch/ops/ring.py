@@ -347,6 +347,11 @@ class Ring:
     def _split(self) -> bool:
         return config.ntt_mxu_tail and self.logn >= SPLIT_MIN_LOGN
 
+    def full_forward(self) -> bool:
+        """Whether ntt launches ntt_cuda.ntt's full forward kernel (no
+        dist setting, the split NTT off)."""
+        return self.dist is None and not self._split()
+
     def ntt(self, a):
         """Forward negacyclic NTT over (..., L, N): standard coefficient
         order in, bit-reversed evaluation order out, canonical. Accepts
@@ -355,14 +360,14 @@ class Ring:
         the local chunk (..., L, N / C) and runs the sharded transform
         (before the split's switch, as in the JAX package)."""
         a = a.contiguous()
+        if self.full_forward():
+            return ntt_cuda.ntt(a, self.q, self.bar, self.psi, self.psi_sh,
+                                self.psi_pack)
         if self.dist is not None:
             from ..parallel import dist_ntt
             return dist_ntt.ntt_in_shard(self, a, inverse=False)
-        if self._split():
-            return ntt_cuda.ntt_split_fwd(a, self.q, self.r_inv,
-                                          self.split_tables())
-        return ntt_cuda.ntt(a, self.q, self.bar, self.psi, self.psi_sh,
-                            self.psi_pack)
+        return ntt_cuda.ntt_split_fwd(a, self.q, self.r_inv,
+                                      self.split_tables())
 
     def intt(self, a):
         """Inverse negacyclic NTT: bit-reversed in, standard order out,

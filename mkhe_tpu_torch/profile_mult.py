@@ -9,11 +9,14 @@ encryptions, as bench.py does), then prints:
   latency   median ms of Evaluator.mul_relin_new, from CUDA events and
             from the host clock with a synchronize;
   launches  NTT and key-switching kernel launches per mult (ops/ntt_cuda
-            and ops/basis_cuda counters);
+            and ops/basis_cuda counters: `decompose_ntt` counts the fused
+            decompositions, `mod_up` and `ntt_fwd` would count one that
+            took the two-kernel path);
   steps     median ms (CUDA events) of each step mul_relin_new runs:
-            hoisted_form (digit mod_ups, digit NTT), mul_and_relin from
-            hoisted digits (key aggregation, external products, party
-            sum, ModDown) and the rescale;
+            hoisted_form (the fused decomposition, beside the mod_ups +
+            digit NTT it replaces), mul_and_relin from hoisted digits
+            (key aggregation, external products, party sum, ModDown) and
+            the rescale;
   trace     torch.profiler over TRACE_CALLS mults: device kernel time,
             kernel count and device idle share per mult, and the ops that
             own the most device time; then the same mults again with the
@@ -27,7 +30,7 @@ encryptions, as bench.py does), then prints:
 --bfv profiles the 4-party MKBFV PN15QP880 mult + relin instead (the
 same operands, messages uniform mod t): its latency and the same trace,
 spans on, with the BFV steps (bfv.lift, bfv.rescale_qr, bfv.tensor,
-bfv.quantize) beside the key switch's.
+bfv.quantize) beside the key switch's, and its launches per mult.
 
 `profile` and `trace` take any parameters and device, so the same code
 runs at a small size on the CPU (host-clock times, no device rows).
@@ -138,6 +141,17 @@ def host_ms(fn, reps: int, device: torch.device) -> float:
     return statistics.median(times)
 
 
+def launches(fn) -> dict:
+    """NTT and key-switching kernel launches of one fn() (after a warm-up
+    call)."""
+    fn()
+    ntt_cuda.reset_counters()
+    basis_cuda.reset_counters()
+    fn()
+    return {"ntt_fwd": ntt_cuda.fwd_launches,
+            "ntt_inv": ntt_cuda.inv_launches, **basis_cuda.counters()}
+
+
 def profile(params, ev, ct0, ct1, rlk, reps: int) -> dict:
     """Latency, NTT launches per mult and the per-step medians."""
     rp = params.rlwe
@@ -147,7 +161,6 @@ def profile(params, ev, ct0, ct1, rlk, reps: int) -> dict:
     stk = rlk.stacked(ct0.ids)
     h0, h1 = ev.hoisted_form(ct0), ev.hoisted_form(ct1)
     x = ct0.ct.data[1:]
-    dig = basis.decompose_digits(x, rq, rqp, rp.alpha)
     xk = ksw._aggregate_keys(rp, h0.digits, stk[1], level)
     prod = ksw.mul_and_relin(rp, ct0.ct, ct1.ct, stk, level, h0, h1)
     prod = mkckks.Ciphertext(ct=prod, scale=ct0.scale * ct1.scale)
@@ -158,20 +171,17 @@ def profile(params, ev, ct0, ct1, rlk, reps: int) -> dict:
     def mult():
         return ev.mul_relin_new(ct0, ct1, rlk)
 
-    mult()
-    ntt_cuda.reset_counters()
-    basis_cuda.reset_counters()
-    mult()
-    out = {"ntt_fwd_launches": ntt_cuda.fwd_launches,
-           "ntt_inv_launches": ntt_cuda.inv_launches,
-           "keyswitch_launches": basis_cuda.counters()}
+    n = launches(mult)
+    out = {"ntt_fwd_launches": n.pop("ntt_fwd"),
+           "ntt_inv_launches": n.pop("ntt_inv"), "keyswitch_launches": n}
     out["mult_ms"] = median_ms(mult, reps, dev)
     out["mult_host_ms"] = host_ms(mult, reps, dev)
     steps = {
         "hoisted_form (one operand)": lambda: ev.hoisted_form(ct0),
-        f"  decompose_digits: {rp.beta(level)} mod_ups of {k} polys":
-            lambda: basis.decompose_digits(x, rq, rqp, rp.alpha),
-        f"  digit NTT {tuple(dig.shape[:-1])}": lambda: rqp.ntt(dig),
+        f"  decompose_ntt: {rp.beta(level)} digits of {k} polys":
+            lambda: basis.decompose_ntt(x, rq, rqp, rp.alpha),
+        "  the two-kernel decomposition it replaces (mod_up, digit NTT)":
+            lambda: rqp.ntt(basis.decompose_digits(x, rq, rqp, rp.alpha)),
         "mul_and_relin from hoisted digits":
             lambda: ksw.mul_and_relin(rp, ct0.ct, ct1.ct, stk, level, h0, h1),
         "  _aggregate_keys (one of x, y)":
@@ -374,7 +384,8 @@ def main(argv=None) -> None:
         print(f"BFV PN15QP880, {PARTIES} parties, torch {torch.__version__}:"
               f" mult+relin {median_ms(mult, REPS, dev):.3f} ms (CUDA "
               f"events, median of {REPS}), {host_ms(mult, REPS, dev):.3f} "
-              "ms (host clock + synchronize)", flush=True)
+              f"ms (host clock + synchronize); launches per mult "
+              f"{launches(mult)}", flush=True)
         print_trace(trace(mult, TRACE_CALLS, dev, args.trace), "bfv mult")
         return
     params = mkckks.PN15QP880("cuda")

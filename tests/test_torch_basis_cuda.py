@@ -12,10 +12,20 @@ mkhe_tpu (tolerance: exact, every output is a canonical residue):
   v boundary and contractions of more than 64 terms;
 - the rescale kernel's table and word arithmetic (Barrett of the rounded
   limb, the Shoup product) against rescale_plain, boundary values
-  included; the rescale's JAX parity is tests/test_torch_basis.py's.
+  included; the rescale's JAX parity is tests/test_torch_basis.py's;
+- the fused decomposition (csrc/ntt.cu's decompose_ntt_kernel): its first
+  pass's digit values, emulated from the packed words and the strided
+  source as the kernel reads them, against decompose_plain; which route
+  ops/basis.decompose_ntt takes; and the kernel's name against the
+  benchmark's kernel maps.
 
 logN 8, one torch thread; the kernels themselves run in
 tests/test_torch_cuda.py on a card."""
+
+import dataclasses
+import json
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +37,8 @@ from mkhe_tpu.ops import basis as jbasis
 from mkhe_tpu.ops import modmath as jmm
 from mkhe_tpu.ops import ring as jring
 from mkhe_tpu.ops.primes import ntt_primes
+from mkhe_tpu_torch import config
+from mkhe_tpu_torch.ops import basis, ntt_cuda
 from mkhe_tpu_torch.ops import basis_cuda as bc
 from mkhe_tpu_torch.ops.ring import Ring
 
@@ -472,3 +484,160 @@ def test_rescale_raises():
                        (Q[:10], bc.MAX_DROP + 1), (Q * 200, 2)):
         with pytest.raises(ValueError):
             bc.rescale_table(moduli, nb)
+
+
+# -- the fused decomposition (csrc/ntt.cu::decompose_ntt_kernel) -------------
+
+def emulate_digit_values(x3, words, ls, beta, ld, logn):
+    """decompose_ntt_kernel's first-pass values on x3 (P, Ls, N) with the
+    packed words of digits of two limbs, as csrc/ntt.cu::digit_values
+    computes them: the output polynomial pi = (p beta + k) Ld + j, the
+    source read from the storage at p sxp + (2 k + i) sxl + c (a one-limb
+    last digit reads its limb twice, the second time with a zero
+    multiplier), the digit's words at 4 Ld + k ds, y_i by REDC, v from
+    fl32(y_0 / b_0) + fl32(y_1 / b_1) in float32 (the floor read from vf +
+    2^23 rounded down), cv = -b_0 qhat_0j mod d_j, and one lazy Montgomery
+    reduction of y_0 qhat_0j + y_1 qhat_1j + v cv (Barrett of the high
+    word, REDC of the low word, no final subtraction)."""
+    w = words.astype(np.uint64)
+    n = 1 << logn
+    sxp, sxl = x3.stride(0), x3.stride(1)
+    flat = torch.as_strided(x3, (x3.untyped_storage().nbytes() // 8,),
+                            (1,), 0)
+    store = flat.numpy().astype(np.uint64) & M32
+    ds = 8 + 2 * ld + 3 * ld
+    n_polys = x3.shape[0] * beta * ld
+    out = np.empty((n_polys, n), np.uint64)
+    c = np.arange(n)
+    for pi in range(n_polys):
+        pk, j = divmod(pi, ld)
+        p, k = divmod(pk, beta)
+        first = 2 * k
+        lsd = min(2, ls - first)
+        src = 4 * ld + k * ds
+        q, qn, bar = w[4 * j], w[4 * j + 1], w[4 * j + 2]
+        b0, bn0, w0, ib0 = w[src:src + 4]
+        b1, bn1, w1, ib1 = w[src + 4:src + 8]
+        w1 = w1 if lsd > 1 else np.uint64(0)
+        h0, h1 = w[src + 8 + j], w[src + 8 + ld + j]
+        bm = b0 * h0 % q
+        cv = q - bm if bm else np.uint64(0)
+        at = x3.storage_offset() + p * sxp + first * sxl + c
+        y0 = _redc(store[at] * w0, b0, bn0)
+        y1 = _redc(store[at + (sxl if lsd > 1 else 0)] * w1, b1, bn1)
+        vf = (y0.astype(np.float32) * np.uint32(ib0).view(np.float32)
+              + y1.astype(np.float32) * np.uint32(ib1).view(np.float32))
+        total = vf.astype(np.float64) + 2.0 ** 23   # exact
+        near = total.astype(np.float32)              # rounded to nearest
+        down = np.where(near > total, near - np.float32(1), near)
+        v = np.minimum(down.view(np.int32) - 0x4B000000, lsd).astype(
+            np.uint64)
+        acc = y0 * h0 + y1 * h1 + v * cv
+        hi, lo = acc >> S32, acc & M32
+        t = (lo + ((lo * qn) & M32) * q) >> S32
+        out[pi] = ((hi - ((hi * bar) >> S32) * q) & M32) + t
+    return out.reshape(x3.shape[0], beta, ld, n).astype(np.int64)
+
+
+@pytest.mark.parametrize("alpha,ls", [(2, 7), (2, 6), (2, 5), (2, 3)])
+def test_decompose_ntt_digit_values(alpha, ls):
+    """The fused kernel's digit values, emulated from DigitTables.pack on
+    the (P, Ls, N) view of a level-dropped source (the last digit one
+    limb short at an odd Ls), with the float32 v boundary planted: below 3q
+    and equal to decompose_plain mod q; the wrapper's CPU route is the
+    composition it fuses (decompose_plain, then the plain NTT) and counts
+    no launch."""
+    src, dst = Q[:ls], Q[:ls] + P
+    base = _rand((2, 3, ls + 2, N), seed=60 + 10 * alpha + ls,
+                 bound=np.array(Q[:ls + 2], np.uint64)[:, None])
+    base[:, :, :ls] = bc.plant_v_boundary(base[:, :, :ls], src, alpha,
+                                          [5, 77, 254])
+    x = base[:, :, :ls]
+    assert not x.is_contiguous()
+    v32, exact = bc.v_floors(x, src, alpha)
+    assert int((v32 != exact).sum()) > 0
+    t = bc.digit_tables(src, dst, alpha, torch.device("cpu"))
+    beta = -(-ls // alpha)
+    want = bc.decompose_plain(x, t)
+    assert want.shape == (2, 3, beta, len(dst), N)
+    x3 = bc.polys(x, ls)
+    assert x3.stride(1) == N and x3.stride(0) == (ls + 2) * N
+    emu = emulate_digit_values(x3, t.pack.numpy().view(np.uint32), ls,
+                               beta, len(dst), LOGN).reshape(want.shape)
+    dq = np.array(dst, np.int64)[:, None]
+    assert (emu < 3 * dq).all()      # the butterflies take < 4q
+    _same(emu % dq, want)
+    ring = Ring.create(dst, LOGN, "cpu")
+    bc.reset_counters()
+    got = bc.decompose_ntt(x, t, ring)
+    assert bc.counters()["decompose_ntt"] == 0
+    _same(got, ntt_cuda.ntt_plain(want, ring.q, ring.bar, ring.psi,
+                                  ring.psi_sh))
+    with pytest.raises(ValueError):
+        bc.decompose_ntt(x, t, Ring.create(dst[:-1], LOGN, "cpu"))
+
+
+def test_decompose_ntt_route():
+    """basis.decompose_ntt fuses only a CUDA tensor's digits of two limbs
+    at logN 14 or 15 into a ring whose ntt is the full forward kernel
+    (Ring.full_forward): a CPU tensor, alpha 1 or 3, another logN, a ring
+    with a dist setting (parallel/coeff_mul.py's) and config.ntt_mxu_tail
+    on keep the composition, whose result on the CPU equals the plain
+    one."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert bc.DECOMPOSE_NTT_LOGNS == (14, 15)
+    for logn in bc.DECOMPOSE_NTT_LOGNS:
+        big = Ring.create(ntt_primes(logn, 28.4, 3), logn, "cpu")
+        sharded = dataclasses.replace(big, dist=object())
+        assert big.full_forward() and basis.fuses(cuda, big, 2)
+        assert not basis.fuses(cpu, big, 2)
+        assert not basis.fuses(cuda, big, 1)
+        assert not basis.fuses(cuda, big, 3)
+        assert not sharded.full_forward()
+        assert not basis.fuses(cuda, sharded, 2)
+        try:
+            config.ntt_mxu_tail = True
+            assert not big.full_forward()
+            assert not basis.fuses(cuda, big, 2)
+        finally:
+            config.ntt_mxu_tail = False
+    src, dst = Q[:6], Q[:6] + P
+    ring = Ring.create(dst, LOGN, "cpu")
+    assert ring.full_forward() and not basis.fuses(cuda, ring, 2)
+    x = _rand((2, 6, N), seed=70, bound=np.array(src, np.uint64)[:, None])
+    rq = Ring.create(src, LOGN, "cpu")
+    for alpha in (1, 2):
+        bc.reset_counters()
+        got = basis.decompose_ntt(x, rq, ring, alpha)
+        want = ring.ntt(basis.decompose_digits(x, rq, ring, alpha))
+        _same(got, want)
+        assert bc.counters()["decompose_ntt"] == 0
+
+
+def test_decompose_ntt_kernel_is_an_ntt_kernel():
+    """The kernel mkhe_decompose_ntt launches is declared in csrc/ntt.cu
+    under a name that hebench/kernel_maps/ntt.json's fragments match and
+    keyswitch.json's do not, so its time counts as NTT time."""
+    root = Path(__file__).resolve().parent.parent
+    src = (ntt_cuda.CSRC / "ntt.cu").read_text()
+    entry = src[src.index('extern "C" int mkhe_decompose_ntt'):]
+    launched = set(re.findall(r"kernel(?:\)\(Args\))? = (\w+)<(\d+)>;",
+                              entry))
+    assert "return launch(kernel, a," in entry
+    names = {name for name, _ in launched}
+    assert len(names) == 1
+    name = names.pop()
+    assert sorted(int(logn) for _, logn in launched) == list(
+        bc.DECOMPOSE_NTT_LOGNS)
+    assert re.search(r"__global__ void __launch_bounds__\(kMaxThreads, 1\)"
+                     r"\s+" + name + r"\(const Args in\)", src)
+    for _, logn in launched:
+        mangled = (f"_ZN12_GLOBAL__N_1{len(name)}{name}ILi{logn}EEEv"
+                   "NS_4ArgsE")
+        assert ntt_cuda.kernel_name(mangled) == f"{name}<{logn}>"
+    maps = {m: json.loads((root / "hebench" / "kernel_maps" / f"{m}.json")
+                          .read_text())["kernels"]
+            for m in ("ntt", "keyswitch")}
+    assert "ntt_kernel" in name and "basis_kernel" not in name
+    assert any(f in name for f in maps["ntt"])
+    assert not any(f in name for f in maps["keyswitch"])

@@ -2,9 +2,12 @@
 kernels in csrc/ntt_split.cu in their five modes, and the NTT cost probe's
 variant in csrc/ntt_variant.cu) and the key-switching kernels
 (csrc/keyswitch.cu: mod_up with its digit axis, mod_down, mul_accum,
-the rescale) against their plain PyTorch versions on the card, bit for bit; rotation, conjugation and the CNN pipeline on the
-card against the same calls on the CPU; and threefry's bits, every sampler
-and the PN14QP433_CNN CRS drawn on the card against the CPU's. Needs an
+the rescale) against their plain PyTorch versions on the card, bit for bit;
+the fused decomposition (csrc/ntt.cu::decompose_ntt_kernel) against the
+composition it replaces, bit for bit; rotation, conjugation and the CNN
+pipeline on the card against the same calls on the CPU; and threefry's
+bits, every sampler and the PN14QP433_CNN CRS drawn on the card against
+the CPU's. Needs an
 NVIDIA GPU and nvcc; without a card every test skips. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -494,15 +497,16 @@ def test_cnn_mini_pipeline_matches_cpu(gen):
 # fuse: the pipeline captured as one CUDA graph, and the batched mult
 # ----------------------------------------------------------------------------
 
-def _fuse_ctx(gen, rots=(1, 2)):
-    """CKKS at logN 10 (alpha 2, 2 parties) on the card, keys from
-    the port's seeds, with rotation CRS and keys for rots and a
+def _fuse_ctx(gen, rots=(1, 2), params=None):
+    """CKKS at logN 10 (alpha 2, 2 parties) on the card, or at `params`,
+    keys from the port's seeds, with rotation CRS and keys for rots and a
     conjugation key; fresh() encrypts one ciphertext under each party."""
     import numpy as np
     from mkhe_tpu_torch import mkckks, mkrlwe
-    params = mkckks.new_parameters(10, 9, q0_bits=28.9, level_bits=20.0,
-                                   levels=3, scale=2.0 ** 40, p_bits=28.0,
-                                   p_count=4, device="cuda")
+    if params is None:
+        params = mkckks.new_parameters(10, 9, q0_bits=28.9, level_bits=20.0,
+                                       levels=3, scale=2.0 ** 40,
+                                       p_bits=28.0, p_count=4, device="cuda")
     for r in rots + (-2,):
         params = params.add_crs(r)
     kgen = mkrlwe.KeyGenerator(params.rlwe, seed=87)
@@ -1149,7 +1153,7 @@ def test_keyswitch_kernels_count_and_raise(gen):
     bc.mod_up_plain(x[:, :2], up)
     bc.mul_accum_plain(c, c, 1, lt)
     assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1,
-                             "rescale": 0}
+                             "rescale": 0, "decompose_ntt": 0}
     with pytest.raises(ValueError):
         bc.mod_up(x[:, :3], up)
     with pytest.raises(TypeError):
@@ -1168,7 +1172,7 @@ def test_keyswitch_kernels_count_and_raise(gen):
     with pytest.raises(ValueError):
         bc.mul_accum(y, z, 1, lt)
     assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1,
-                             "rescale": 0}
+                             "rescale": 0, "decompose_ntt": 0}
 
 
 @pytest.mark.parametrize("kernel", ["mod_up", "decompose", "mod_down",
@@ -1198,6 +1202,147 @@ def test_keyswitch_wrappers_capture_in_default_mode(gen, kernel):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ----------------------------------------------------------------------------
+# The fused decomposition (csrc/ntt.cu::decompose_ntt_kernel,
+# basis_cuda.decompose_ntt)
+# ----------------------------------------------------------------------------
+
+def _decompose_cases(gen):
+    """(name, source view, source moduli, destination moduli, logN) of
+    every shape the fused route takes, digits of two limbs: the CKKS
+    mult's (Ls 28 -> 32, 8 party polys), an odd level (Ls 27: a one-limb
+    last digit), a level-dropped view of a taller tensor, BFV over R (Ls
+    56, 28 digits), the CNN's logN 14 (Ls 14 -> 18) and a batch axis."""
+    q, p, qmul = _ks_moduli(15)
+    q14, p14, _ = _ks_moduli(14)
+    cases = []
+
+    def add(name, x, src, dst, logn):
+        cases.append((name, _with_boundary(x, src, 2), src, dst, logn))
+
+    n = 1 << 15
+    add("ckks (8, 28) -> (8, 14, 32)", _rand(gen, (8, 28, n), 1 << 32), q,
+        q + p, 15)
+    add("odd level (4, 27)", _rand(gen, (4, 27, n), 1 << 32), q[:27],
+        q[:27] + p, 15)
+    tall = _rand(gen, (3, 28, n), 1 << 32)
+    add("level-dropped view (3, 28)[:, :21]", tall[:, :21], q[:21],
+        q[:21] + p, 15)
+    add("bfv R (2, 56) -> (2, 28, 32)", _rand(gen, (2, 56, n), 1 << 32),
+        q + qmul, q + p, 15)
+    add("cnn logN 14 (2, 14) -> (2, 7, 18)",
+        _rand(gen, (2, 14, 1 << 14), 1 << 32), q14[:14], q14[:14] + p14, 14)
+    add("batch axis (2, 3, 7) logN 14",
+        _rand(gen, (2, 3, 7, 1 << 14), 1 << 32), q14[:7], q14[:7] + p14, 14)
+    return cases
+
+
+def test_decompose_ntt_matches_composition(gen):
+    """The fused digits equal ring.ntt(basis_cuda.decompose(x, t)) and the
+    plain version (decompose_ntt_plain) bit for bit at every shape of
+    _decompose_cases, so both instantiations meet the plain reference, the
+    float32 v boundary in every digit; one fused launch each, no mod_up or
+    forward NTT launch."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    dev = torch.device("cuda")
+    for name, x, src, dst, logn in _decompose_cases(gen):
+        ring = Ring.create(dst, logn, "cuda")
+        t = bc.digit_tables(src, dst, 2, dev)
+        bc.reset_counters()
+        ntt_cuda.reset_counters()
+        got = bc.decompose_ntt(x, t, ring)
+        assert bc.counters()["decompose_ntt"] == 1, name
+        assert bc.counters()["mod_up"] == 0 and ntt_cuda.fwd_launches == 0
+        want = ring.ntt(bc.decompose(x, t))
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (*x.shape[:-2], -(-len(src) // 2),
+                                           len(dst), 1 << logn)
+        assert torch.equal(got, want), name
+        del want
+        assert torch.equal(got, bc.decompose_ntt_plain(x, t, ring)), name
+
+
+def test_decompose_ntt_routes_and_counts(gen):
+    """basis.decompose_ntt on the card: one fused launch for digits of two
+    limbs at logN 14; the composition (one mod_up, one forward NTT) with
+    the split NTT on, at alpha 3 and at logN 12, 10, 8 and 4 (4: a single
+    pass), and a broadcast view at alpha 1; all equal the plain version.
+    basis_cuda.decompose_ntt raises for a shape its kernel lacks. A
+    two-party CKKS mult at PN14QP433_CNN launches the fused kernel once per
+    decomposition (both operands' hoistings and t's) and no mod_up."""
+    from mkhe_tpu_torch import config, mkckks
+    from mkhe_tpu_torch.ops import basis
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    dev = torch.device("cuda")
+
+    def route(x, rq, rqp, alpha, split=False):
+        bc.reset_counters()
+        ntt_cuda.reset_counters()
+        config.ntt_mxu_tail = split
+        try:
+            got = basis.decompose_ntt(x, rq, rqp, alpha)
+        finally:
+            config.ntt_mxu_tail = False
+        want = bc.decompose_ntt_plain(x, bc.digit_tables(
+            rq.moduli, rqp.moduli, alpha, dev), rqp)
+        assert torch.equal(got, want), (rq.logn, alpha, split)
+        return (bc.counters()["decompose_ntt"], bc.counters()["mod_up"],
+                ntt_cuda.fwd_launches)
+
+    for logn in (14, 12, 10, 8, 4):
+        q, p, _ = _ks_moduli(logn)
+        rq = Ring.create(q[:7], logn, "cuda")
+        rqp = Ring.create(q[:7] + p, logn, "cuda")
+        x = _with_boundary(_rand(gen, (3, 7, 1 << logn), rq.q[:, None]),
+                           rq.moduli, 2)
+        if logn == 14:
+            assert route(x, rq, rqp, 2) == (1, 0, 0)
+            assert route(x, rq, rqp, 2, split=True) == (0, 1, 0)
+            assert route(x, rq, rqp, 3) == (0, 1, 1)
+            assert route(x, rq, rqp, 1) == (0, 0, 1)
+            with pytest.raises(ValueError):
+                bc.decompose_ntt(x, bc.digit_tables(rq.moduli, rqp.moduli,
+                                                    3, dev), rqp)
+        else:
+            assert route(x, rq, rqp, 2) == (0, 1, 1)
+            with pytest.raises(ValueError):
+                bc.decompose_ntt(x, bc.digit_tables(rq.moduli, rqp.moduli,
+                                                    2, dev), rqp)
+    params, rlk, _, _, fresh = _fuse_ctx(
+        gen, rots=(), params=mkckks.PN14QP433_CNN("cuda"))
+    ev = mkckks.Evaluator(params)
+    a, b = fresh()
+    ev.mul_relin_new(a, b, rlk)
+    bc.reset_counters()
+    ev.mul_relin_new(a, b, rlk)
+    torch.cuda.synchronize()
+    assert bc.counters()["decompose_ntt"] == 3
+    assert bc.counters()["mod_up"] == 0
+
+
+def test_decompose_ntt_in_captured_mult(gen):
+    """A CKKS mult at PN14QP433_CNN captured into a CUDA graph (fuse.fuse,
+    the default capture error mode) with the fused decompositions in it:
+    replays on fresh inputs equal eager mul_relin_new bit for bit."""
+    from mkhe_tpu_torch import fuse, mkckks
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    params, rlk, _, _, fresh = _fuse_ctx(
+        gen, rots=(), params=mkckks.PN14QP433_CNN("cuda"))
+    ev = mkckks.Evaluator(params)
+
+    def mult(ev, keys, a, b):
+        return ev.mul_relin_new(a, b, keys.rlk)
+
+    bc.reset_counters()
+    fn, args = fuse.fuse(params, mult, fresh(), rlk_set=rlk)
+    assert fn.graph is not None and bc.counters()["decompose_ntt"] > 0
+    for _ in range(2):
+        a, b = fresh()
+        got, want = fn(args[0], args[1], (a, b)), ev.mul_relin_new(a, b, rlk)
+        assert got.ids == want.ids and got.scale == want.scale
+        assert torch.equal(got.ct.data, want.ct.data)
 
 
 # ----------------------------------------------------------------------------

@@ -750,6 +750,18 @@ def test_ptxas_lines_name_each_kernel():
         "plain_c_entry"]
 
 
+def test_kernel_name_reads_every_kernel_of_the_library():
+    """kernel_name gives the fused decomposition's instantiations with
+    their template arguments, and a kernel that is no template by its name
+    alone."""
+    assert ntt_cuda.kernel_name(
+        "_ZN12_GLOBAL__N_120decompose_ntt_kernelILi15EEEvNS_4ArgsE"
+    ) == "decompose_ntt_kernel<15>"
+    assert ntt_cuda.kernel_name(
+        "_ZN12_GLOBAL__N_116mul_accum_kernelEPKlS1_PlPKjNS_11ContractionEii"
+    ) == "mul_accum_kernel"
+
+
 def test_split_inv_bound_counts_its_bytes_and_operations():
     """profile_ntt's bound of the fused inverse: x read and written once
     (16 B a coefficient) with q, the packed untwist, the iwpack entries of
