@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..mkrlwe import keyswitch as ksw
-from ..mkrlwe.elements import Ciphertext, union_ids
+from ..mkrlwe.elements import Ciphertext, _union_combine, union_ids
 from ..utils.profiling import span
 from .params import Parameters
 from .keys import RelinearizationKeySet
@@ -22,29 +22,14 @@ class Evaluator:
     def __init__(self, params: Parameters):
         self.params = params
 
-    def _combine(self, ct0: Ciphertext, ct1: Ciphertext, op, lone_b
-                 ) -> Ciphertext:
-        ids = union_ids(ct0.ids, ct1.ids)
-        ring = self.params.ring_q
-        a, b = ct0.data, ct1.data
-        out = [op(ring, a[0], b[0])]
-        for pid in ids:
-            if pid in ct0.ids and pid in ct1.ids:
-                out.append(op(ring, a[1 + ct0.ids.index(pid)],
-                              b[1 + ct1.ids.index(pid)]))
-            elif pid in ct0.ids:
-                out.append(a[1 + ct0.ids.index(pid)])
-            else:
-                out.append(lone_b(ring, b[1 + ct1.ids.index(pid)]))
-        return Ciphertext(ids=ids, data=torch.stack(out))
-
     def add_new(self, ct0: Ciphertext, ct1: Ciphertext) -> Ciphertext:
-        return self._combine(ct0, ct1, lambda r, x, y: r.add(x, y),
-                             lambda r, y: y)
+        return _union_combine(self.params.ring_q, ct0, ct1,
+                              lambda r, x, y: r.add(x, y), lambda r, y: y)
 
     def sub_new(self, ct0: Ciphertext, ct1: Ciphertext) -> Ciphertext:
-        return self._combine(ct0, ct1, lambda r, x, y: r.sub(x, y),
-                             lambda r, y: r.neg(y))
+        return _union_combine(self.params.ring_q, ct0, ct1,
+                              lambda r, x, y: r.sub(x, y),
+                              lambda r, y: r.neg(y))
 
     def mul_relin_new(self, ct0: Ciphertext, ct1: Ciphertext,
                       rlk_set: RelinearizationKeySet) -> Ciphertext:

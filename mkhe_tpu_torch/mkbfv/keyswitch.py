@@ -7,8 +7,8 @@ each (Q-half digits first, then QMul-half), every digit extended to the 32
 QP limbs; the paired switching keys are fused as (2*beta, Lqp, N), so each
 external product is one 2*beta-term accumulation. The tensor product runs
 in the NTT domain of R and is quantized by t/QMul back to Q
-(keyswitch.go:191-228); the relinearization fixups reuse mkrlwe's
-key-switching steps over QP.
+(keyswitch.go:191-228); the relinearization fixups are mkrlwe's
+relinearize over QP.
 """
 
 from __future__ import annotations
@@ -68,75 +68,27 @@ def mul_and_relin_bfv(params: Parameters, ct0r: Ciphertext,
     """KKLSS multiplication in the BFV double basis
     (MulAndRelinBFV[Hoisted], keyswitch.go:116-250): ct0r holds lifted
     components (ModUpQtoR), ct1r QMul/Q-rescaled ones; the tensor in R is
-    quantized by t/QMul back to Q, and the x/y/v/u relinearization fixups
-    run over QP as in CKKS, with 2*beta digits for x and y. The data may
-    carry a batch axis behind the party axis, (k+1, B, 2Lq, N), as in
-    mkrlwe's mul_and_relin."""
+    quantized by t/QMul back to Q, and mkrlwe's relinearize runs the
+    x/y/v/u fixups over QP as in CKKS, with 2*beta digits for x and y.
+    The data may carry a batch axis behind the party axis, (k+1, B, 2Lq,
+    N), as in mkrlwe's mul_and_relin."""
     rp = params.rlwe
     level = rp.max_level
-    ring_q, ring_r = rp.ring_q, params.ring_r
     ids0, ids1 = ct0r.ids, ct1r.ids
     ids = union_ids(ids0, ids1)
-
     if dec0 is None or dec1 is None:
         with span("ksw.decompose"):
             if dec0 is None:
                 dec0 = decompose_bfv(params, ct0r.data[1:])
             if dec1 is None:
                 dec1 = decompose_bfv(params, ct1r.data[1:])
-
-    b_all, d_all, v_all = rlk_stacked
-    sel0 = [ids.index(i) for i in ids0]
-    sel1 = [ids.index(i) for i in ids1]
-    d_keys = ksw._rows(d_all, sel0)
-    b_keys = ksw._rows(b_all, sel1)
-    v_keys = ksw._rows(v_all, sel0)
-    u_key = rp.crs_at(-1, level)
-
-    with span("ksw.aggregate"):
-        x = ksw._aggregate_keys(rp, dec0, d_keys, level)
-        y = ksw._aggregate_keys(rp, dec1, b_keys, level)
-
-    # tensor in R (NTT domain), then quantize every component by t/QMul
+    (d_keys, b_keys, v_keys, u_key), i0, i1 = ksw._relin_keys(
+        rp, rlk_stacked, ids, ids0, ids1, level)
+    x, y = ksw._aggregate(rp, dec0, dec1, d_keys, b_keys, level)
     with span("bfv.tensor"):
-        nt0 = ring_r.ntt(ct0r.data)
-        nt1 = ring_r.ntt(ct1r.data)
-        nt0_0m = ring_r.to_mont(nt0[0])
-        nt1_0m = ring_r.to_mont(nt1[0])
-        tensor = [ring_r.mul_mont(nt1[0], nt0_0m)]
-        for pid in ids:
-            acc = None
-            if pid in ids0:
-                acc = ring_r.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
-            if pid in ids1:
-                term = ring_r.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
-                acc = term if acc is None else ring_r.add(acc, term)
-            tensor.append(acc)
-    out = bfv_basis.quantize(params, torch.stack(tensor))
-
-    # out_j += Ext(ct1r_j, x); t_i = Ext(ct0r_i, y): one batched iNTT +
-    # ModDown for both (poly-wise, so bit-identical)
-    with span("ksw.external_product"):
-        z1_ntt = ksw.external_product_ntt(rp, dec1, x, level)
-        t_ntt = ksw.external_product_ntt(rp, dec0, y, level)
-    k1 = len(ids1)
-    with span("ksw.mod_down"):
-        zt = ksw.mod_down_qp(rp, torch.cat([z1_ntt, t_ntt]), level)
-        z1, t = zt[:k1], zt[k1:]
-        i1 = ksw.index(tuple(1 + s for s in sel1), out.device)
-        out[i1] = ring_q.add(out[i1], z1)
-
-    # Q-basis fixups with v_i and u, again one batched ModDown
-    with span("ksw.decompose"):
-        dec_t = ksw.decompose(rp, t, level)
-    with span("ksw.v_sum"):
-        v_ntt = ksw._sum_parties_ntt(rp, ksw.parties_inner(dec_t), v_keys,
-                                     level)
-    with span("ksw.external_product"):
-        zu_ntt = ksw.external_product_ntt(rp, dec_t, u_key, level)
-    with span("ksw.mod_down"):
-        vz = ksw.mod_down_qp(rp, torch.cat([v_ntt[None], zu_ntt]), level)
-        out[0] = ring_q.add(out[0], vz[0])
-        i0 = ksw.index(tuple(1 + s for s in sel0), out.device)
-        out[i0] = ring_q.add(out[i0], vz[1:])
-    return Ciphertext(ids=ids, data=out)
+        tensor = ksw._tensor_ntt(params.ring_r, ct0r.data, ct1r.data, ids0,
+                                 ids1, ids)
+    out = bfv_basis.quantize(params, tensor)
+    z1_ntt, t_ntt = ksw._external_products(rp, dec0, dec1, x, y, level)
+    return Ciphertext(ids=ids, data=ksw.relinearize(
+        rp, out, z1_ntt, t_ntt, v_keys, u_key, i0, i1, level))

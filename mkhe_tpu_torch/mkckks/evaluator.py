@@ -19,7 +19,7 @@ import torch
 
 from .. import mkrlwe
 from ..mkrlwe import keyswitch as ksw
-from ..mkrlwe.elements import Ciphertext as RCt, union_ids
+from ..mkrlwe.elements import Ciphertext as RCt, _union_combine, union_ids
 from ..ops import basis
 from ..ops import modmath as mm
 from ..utils.profiling import span
@@ -43,14 +43,6 @@ class Evaluator:
 
     # -- helpers ------------------------------------------------------------
 
-    @staticmethod
-    def _index_maps(ids_out, ids_a, ids_b):
-        map_a = [0] + [1 + ids_a.index(i) if i in ids_a else -1
-                       for i in ids_out]
-        map_b = [0] + [1 + ids_b.index(i) if i in ids_b else -1
-                       for i in ids_out]
-        return map_a, map_b
-
     def _align_levels(self, ct0: Ciphertext, ct1: Ciphertext):
         level = min(ct0.level, ct1.level)
         return (self.drop_level(ct0, ct0.level - level),
@@ -69,18 +61,8 @@ class Evaluator:
     def _combine(self, ct0: Ciphertext, ct1: Ciphertext, op, lone_b):
         ct0, ct1 = self._align_scales(ct0, ct1)
         ct0, ct1, level = self._align_levels(ct0, ct1)
-        ids = union_ids(ct0.ids, ct1.ids)
-        ring = self.params.rlwe.ring_q_at(level)
-        a, b = ct0.ct.data, ct1.ct.data
-        out = []
-        for ia, ib in zip(*self._index_maps(ids, ct0.ids, ct1.ids)):
-            if ia >= 0 and ib >= 0:
-                out.append(op(ring, a[ia], b[ib]))
-            elif ia >= 0:
-                out.append(a[ia])
-            else:
-                out.append(lone_b(ring, b[ib]))
-        return Ciphertext(ct=RCt(ids=ids, data=torch.stack(out)),
+        return Ciphertext(ct=_union_combine(self.params.rlwe.ring_q_at(level),
+                                            ct0.ct, ct1.ct, op, lone_b),
                           scale=max(ct0.scale, ct1.scale))
 
     # -- add / sub ----------------------------------------------------------

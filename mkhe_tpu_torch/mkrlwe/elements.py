@@ -42,6 +42,24 @@ def union_ids(a: Tuple[str, ...], b: Tuple[str, ...]) -> Tuple[str, ...]:
     return tuple(sorted(set(a) | set(b)))
 
 
+def _union_combine(ring, ct0: Ciphertext, ct1: Ciphertext, op, lone_b
+                   ) -> Ciphertext:
+    """ct0 op ct1 over the union of their party ids (the add / sub of
+    mkckks/evaluator.go:200-304): op(ring, a, b) on c0 and on each party
+    both hold, a party of ct0 alone keeps its row, and one of ct1 alone
+    becomes lone_b(ring, b)."""
+    ids = union_ids(ct0.ids, ct1.ids)
+    out = [op(ring, ct0.c0, ct1.c0)]
+    for pid in ids:
+        if pid not in ct1.ids:
+            out.append(ct0.party(pid))
+        elif pid not in ct0.ids:
+            out.append(lone_b(ring, ct1.party(pid)))
+        else:
+            out.append(op(ring, ct0.party(pid), ct1.party(pid)))
+    return Ciphertext(ids=ids, data=torch.stack(out))
+
+
 def pad_ciphertext(ct: Ciphertext, ids: Tuple[str, ...]) -> Ciphertext:
     """Zero-pad to the union with ids (reference PadCiphertext,
     mkrlwe/elements.go:91-105); ct itself if nothing is added."""

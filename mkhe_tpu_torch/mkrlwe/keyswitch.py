@@ -2,6 +2,11 @@
 multiply-relinearize (also as a lazily relinearized sum of products), and
 rotation and conjugation (port of mkhe_tpu/mkrlwe/keyswitch.py).
 
+The mult's steps (key selection, aggregation, the tensor terms over any
+ring, the relinearization tail `relinearize`) are written once here; the
+BFV mult (mkbfv/keyswitch.py) and the party-sharded mult
+(parallel/party_mul.py) call them too.
+
 Every per-party loop of the reference is a batched tensor op over a party
 axis. Digit and party contractions are sums of products reduced once
 (_reduce_qp: csrc/keyswitch.cu's contraction kernel on the card, over
@@ -168,21 +173,22 @@ def _digits(params: Parameters, h: Optional[HoistedCiphertext], d,
         return decompose(params, d[1:], level)
 
 
-def _tensor_ntt(ring_q: Ring, nt0, nt1, ids0, ids1, ids) -> torch.Tensor:
-    """The tensor terms of ct0 x ct1, NTT domain, (1 + k, Lq, N):
-    out_0 = ct0_0 ct1_0, out_j = ct0_0 ct1_j + ct0_j ct1_0."""
-    nt0_0m = ring_q.to_mont(nt0[0])
-    nt1_0m = ring_q.to_mont(nt1[0])
-    out = [ring_q.mul_mont(nt1[0], nt0_0m)]
-    for pid in ids:
-        acc = None
-        if pid in ids0:
-            acc = ring_q.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
-        if pid in ids1:
-            t = ring_q.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
-            acc = t if acc is None else ring_q.add(acc, t)
-        out.append(acc)
-    return torch.stack(out)
+def _operand_digits(params: Parameters, d0, d1,
+                    h0: Optional[HoistedCiphertext],
+                    h1: Optional[HoistedCiphertext], level: int):
+    """The digits (dec0, dec1) of both operands' party polys, d1 is d0 for
+    the square (one decomposition)."""
+    if h0 is None and h1 is None and d1 is not d0 and d0.shape == d1.shape:
+        # distinct operands: decompose both in one pass (one NTT launch
+        # over 2k parties instead of two over k)
+        with span("ksw.decompose"):
+            both = decompose(params, torch.cat([d0[1:], d1[1:]]), level)
+        k0 = d0.shape[0] - 1
+        return both[:k0], both[k0:]
+    dec0 = _digits(params, h0, d0, level)
+    if d1 is d0 and (h1 is None or h1 is h0 or h1.digits is dec0):
+        return dec0, dec0
+    return dec0, _digits(params, h1, d1, level)
 
 
 def _relin_keys(params: Parameters, rlk_stacked, ids, ids0, ids1,
@@ -200,6 +206,77 @@ def _relin_keys(params: Parameters, rlk_stacked, ids, ids0, ids1,
     dev = d_all.device
     return (keys, index(tuple(1 + s for s in sel0), dev),
             index(tuple(1 + s for s in sel1), dev))
+
+
+def _aggregate(params: Parameters, dec0, dec1, d_keys, b_keys, level: int):
+    """x = MForm(sum_i d_i . Dec(ct0_i)), y = MForm(sum_i b_i . Dec(ct1_i))
+    over QP, NTT domain."""
+    with span("ksw.aggregate"):
+        return (_aggregate_keys(params, dec0, d_keys, level),
+                _aggregate_keys(params, dec1, b_keys, level))
+
+
+def _tensor_ntt(ring: Ring, d0, d1, ids0, ids1, ids) -> torch.Tensor:
+    """The tensor terms of ct0 x ct1 over the ring, from the coefficient
+    domain (d1 is d0 for the square: one NTT) into the NTT domain,
+    (1 + k, L, N): out_0 = ct0_0 ct1_0, out_j = ct0_0 ct1_j + ct0_j ct1_0."""
+    nt0 = ring.ntt(d0)
+    nt1 = nt0 if d1 is d0 else ring.ntt(d1)
+    nt0_0m = ring.to_mont(nt0[0])
+    nt1_0m = ring.to_mont(nt1[0])
+    out = [ring.mul_mont(nt1[0], nt0_0m)]
+    for pid in ids:
+        acc = None
+        if pid in ids0:
+            acc = ring.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
+        if pid in ids1:
+            t = ring.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
+            acc = t if acc is None else ring.add(acc, t)
+        out.append(acc)
+    return torch.stack(out)
+
+
+def _external_products(params: Parameters, dec0, dec1, x, y, level: int):
+    """z1_j = Ext(ct1_j, x) and t_i = Ext(ct0_i, y), NTT domain over QP."""
+    with span("ksw.external_product"):
+        return (external_product_ntt(params, dec1, x, level),
+                external_product_ntt(params, dec0, y, level))
+
+
+def relinearize(params: Parameters, out, z1_ntt, t_ntt, v_keys, u_key,
+                i0, i1, level: int, psum=None) -> torch.Tensor:
+    """The relinearization tail of the KKLSS mult (keyswitch.go:182-229),
+    from the NTT-domain products z1 and t of _external_products (or their
+    sums over an inner product's pairs), into the coefficient-domain
+    tensor terms out (1 + k, Lq, N) over Q, in place; returns out.
+
+      out_j += z1_j                                   j in ids1 (rows i1)
+      out_0 += Ext(Dec t_i, v_i) summed over i;  out_i += Ext(Dec t_i, u)
+                                                      i in ids0 (rows i0)
+
+    Each pair of ModDowns is one batched iNTT + ModDown (poly-wise, so
+    bit-identical to separate ones). psum, where given, sums the v-sum's
+    NTT-domain partials over the ranks that hold the other parties
+    (parallel/party_mul.py)."""
+    ring_q = params.ring_q_at(level)
+    k1 = z1_ntt.shape[0]
+    with span("ksw.mod_down"):
+        zt = mod_down_qp(params, torch.cat([z1_ntt, t_ntt]), level)
+        z1, t = zt[:k1], zt[k1:]                   # (k1|k0, Lq, N)
+        out[i1] = ring_q.add(out[i1], z1)
+    with span("ksw.decompose"):
+        dec_t = decompose(params, t, level)        # (k0, beta, Lqp, N)
+    with span("ksw.v_sum"):
+        v_ntt = _sum_parties_ntt(params, parties_inner(dec_t), v_keys, level)
+        if psum is not None:
+            v_ntt = psum(v_ntt)
+    with span("ksw.external_product"):
+        zu_ntt = external_product_ntt(params, dec_t, u_key, level)
+    with span("ksw.mod_down"):
+        vz = mod_down_qp(params, torch.cat([v_ntt[None], zu_ntt]), level)
+        out[0] = ring_q.add(out[0], vz[0])
+        out[i0] = ring_q.add(out[i0], vz[1:])
+    return out
 
 
 def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
@@ -230,61 +307,17 @@ def mul_and_relin(params: Parameters, ct0: Ciphertext, ct1: Ciphertext,
     ids = union_ids(ids0, ids1)
     ring_q = params.ring_q_at(level)
     square = square or (ct0.data is ct1.data and ids0 == ids1)
-
     d0 = ct0.data[..., :level + 1, :]
     d1 = d0 if square else ct1.data[..., :level + 1, :]
-
-    if (h0 is None and h1 is None and not square
-            and d0.shape == d1.shape):
-        # distinct operands: decompose both in one pass (one NTT launch
-        # over 2k parties instead of two over k)
-        with span("ksw.decompose"):
-            both = decompose(params, torch.cat([d0[1:], d1[1:]]), level)
-        k0 = d0.shape[0] - 1
-        dec0, dec1 = both[:k0], both[k0:]
-    else:
-        dec0 = _digits(params, h0, d0, level)
-        if square and (h1 is None or h1 is h0 or h1.digits is dec0):
-            dec1 = dec0
-        else:
-            dec1 = _digits(params, h1, d1, level)
-
+    dec0, dec1 = _operand_digits(params, d0, d1, h0, h1, level)
     (d_keys, b_keys, v_keys, u_key), i0, i1 = _relin_keys(
         params, rlk_stacked, ids, ids0, ids1, level, u_key)
-    with span("ksw.aggregate"):
-        x = _aggregate_keys(params, dec0, d_keys, level)
-        y = _aggregate_keys(params, dec1, b_keys, level)
-
+    x, y = _aggregate(params, dec0, dec1, d_keys, b_keys, level)
     with span("ksw.tensor"):
-        nt0 = ring_q.ntt(d0)
-        nt1 = nt0 if square else ring_q.ntt(d1)
-        out_arr = ring_q.intt(_tensor_ntt(ring_q, nt0, nt1, ids0, ids1, ids))
-
-    # out_j += Ext(ct1_j, x); t_i = Ext(ct0_i, y): one batched
-    # iNTT + ModDown for both (poly-wise, so bit-identical).
-    with span("ksw.external_product"):
-        z1_ntt = external_product_ntt(params, dec1, x, level)
-        t_ntt = external_product_ntt(params, dec0, y, level)
-    k1 = len(ids1)
-    with span("ksw.mod_down"):
-        zt = mod_down_qp(params, torch.cat([z1_ntt, t_ntt]), level)
-        z1, t = zt[:k1], zt[k1:]                   # (k1|k0, Lq, N)
-        out_arr[i1] = ring_q.add(out_arr[i1], z1)
-
-    # out_0 += Ext(Dec t_i, v_i); out_i += Ext(Dec t_i, u): again one
-    # batched iNTT + ModDown for the v-sum and the u products.
-    with span("ksw.decompose"):
-        dec_t = decompose(params, t, level)        # (k0, beta, Lqp, N)
-    with span("ksw.v_sum"):
-        v_ntt = _sum_parties_ntt(params, parties_inner(dec_t), v_keys, level)
-    with span("ksw.external_product"):
-        zu_ntt = external_product_ntt(params, dec_t, u_key, level)
-    with span("ksw.mod_down"):
-        vz = mod_down_qp(params, torch.cat([v_ntt[None], zu_ntt]), level)
-        out_arr[0] = ring_q.add(out_arr[0], vz[0])
-        out_arr[i0] = ring_q.add(out_arr[i0], vz[1:])
-
-    return Ciphertext(ids=ids, data=out_arr)
+        out = ring_q.intt(_tensor_ntt(ring_q, d0, d1, ids0, ids1, ids))
+    z1_ntt, t_ntt = _external_products(params, dec0, dec1, x, y, level)
+    return Ciphertext(ids=ids, data=relinearize(
+        params, out, z1_ntt, t_ntt, v_keys, u_key, i0, i1, level))
 
 
 def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int,
@@ -295,12 +328,12 @@ def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int,
 
     pairs: (ct0, ct1, h0, h1) with the same id sets in every pair (h0, h1
     may be None). The tensor terms and the z1 and t products are summed in
-    the NTT domain, so the sum costs one iNTT of the tensor sum, one
-    iNTT + ModDown for z1, and one ModDown, re-decomposition and v/u
-    products for t, instead of one of each per pair. It decrypts to
+    the NTT domain, so the sum costs one iNTT of the tensor sum and one
+    relinearize (two batched iNTT + ModDowns, one re-decomposition and
+    v/u products), instead of one of each per pair. It decrypts to
     sum_i a_i b_i with one rounding instead of one per pair: it is not
-    bit-identical to a sum of mul_and_relin results. u_key as in
-    mul_and_relin.
+    bit-identical to a sum of mul_and_relin results (of one pair it is).
+    u_key as in mul_and_relin.
     """
     ids0, ids1 = pairs[0][0].ids, pairs[0][1].ids
     ids = union_ids(ids0, ids1)
@@ -314,25 +347,13 @@ def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int,
 
     out_ntt = z1_qp = t_qp = None   # NTT-domain sums over the pairs
     for ct0, ct1, h0, h1 in pairs:
-        square = ct0.data is ct1.data
         d0 = ct0.data[..., :level + 1, :]
-        d1 = d0 if square else ct1.data[..., :level + 1, :]
-        dec0 = _digits(params, h0, d0, level)
-        if square and (h1 is None or h1 is h0):
-            dec1 = dec0
-        else:
-            dec1 = _digits(params, h1, d1, level)
-        with span("ksw.aggregate"):
-            x = _aggregate_keys(params, dec0, d_keys, level)
-            y = _aggregate_keys(params, dec1, b_keys, level)
-
+        d1 = d0 if ct0.data is ct1.data else ct1.data[..., :level + 1, :]
+        dec0, dec1 = _operand_digits(params, d0, d1, h0, h1, level)
+        x, y = _aggregate(params, dec0, dec1, d_keys, b_keys, level)
         with span("ksw.tensor"):
-            nt0 = ring_q.ntt(d0)
-            nt1 = nt0 if square else ring_q.ntt(d1)
-            tensor = _tensor_ntt(ring_q, nt0, nt1, ids0, ids1, ids)
-        with span("ksw.external_product"):
-            z1 = external_product_ntt(params, dec1, x, level)
-            t = external_product_ntt(params, dec0, y, level)
+            tensor = _tensor_ntt(ring_q, d0, d1, ids0, ids1, ids)
+        z1, t = _external_products(params, dec0, dec1, x, y, level)
         if out_ntt is None:
             out_ntt, z1_qp, t_qp = tensor, z1, t
         else:
@@ -341,24 +362,9 @@ def mul_and_relin_sum(params: Parameters, pairs, rlk_stacked, level: int,
             t_qp = ring_qp.add(t_qp, t)
 
     with span("ksw.tensor"):
-        out_arr = ring_q.intt(out_ntt)
-    with span("ksw.mod_down"):
-        z1 = mod_down_qp(params, z1_qp, level)
-        out_arr[i1] = ring_q.add(out_arr[i1], z1)
-        t = mod_down_qp(params, t_qp, level)
-    with span("ksw.decompose"):
-        dec_t = decompose(params, t, level)
-    with span("ksw.v_sum"):
-        v_ntt = _sum_parties_ntt(params, dec_t, v_keys, level)
-    with span("ksw.mod_down"):
-        v_sum = mod_down_qp(params, v_ntt, level)
-        out_arr[0] = ring_q.add(out_arr[0], v_sum)
-    with span("ksw.external_product"):
-        zu_ntt = external_product_ntt(params, dec_t, u_key, level)
-    with span("ksw.mod_down"):
-        zu = mod_down_qp(params, zu_ntt, level)
-        out_arr[i0] = ring_q.add(out_arr[i0], zu)
-    return Ciphertext(ids=ids, data=out_arr)
+        out = ring_q.intt(out_ntt)
+    return Ciphertext(ids=ids, data=relinearize(
+        params, out, z1_qp, t_qp, v_keys, u_key, i0, i1, level))
 
 
 # ----------------------------------------------------------------------------

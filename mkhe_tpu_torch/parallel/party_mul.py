@@ -49,52 +49,6 @@ def _psum(rp: Parameters, x, level: int, group) -> torch.Tensor:
     return comm.all_reduce_sum(x, group) % rp.ring_qp_at(level).q[:, None]
 
 
-def _local_mul(rp: Parameters, level: int, group, square: bool, c0_pair,
-               parties0, parties1, dig0, dig1, keys, u_key):
-    """One rank's share: parties0 / parties1 (k_loc, L, N) this rank's
-    party polys, dig0 / dig1 their digits (None: decompose here), keys
-    the rank's (b, d, v), u_key the CRS u at the level. Returns (out_0,
-    this rank's party outputs)."""
-    ring_q = rp.ring_q_at(level)
-    b, d, v = keys
-    dec0 = (ksw.slice_digits(rp, dig0, level) if dig0 is not None
-            else ksw.decompose(rp, parties0, level))
-    if square:
-        dec1 = dec0
-    else:
-        dec1 = (ksw.slice_digits(rp, dig1, level) if dig1 is not None
-                else ksw.decompose(rp, parties1, level))
-
-    x = _psum(rp, ksw._aggregate_keys(rp, dec0, ksw.slice_swk(rp, d, level),
-                                      level), level, group)
-    y = _psum(rp, ksw._aggregate_keys(rp, dec1, ksw.slice_swk(rp, b, level),
-                                      level), level, group)
-
-    # tensor terms: c0's on every rank, the party terms local
-    nt00 = ring_q.ntt(c0_pair[0])
-    nt10 = nt00 if square else ring_q.ntt(c0_pair[1])
-    nt00m = ring_q.to_mont(nt00)
-    nt10m = nt00m if square else ring_q.to_mont(nt10)
-    out0 = ring_q.intt(ring_q.mul_mont(nt10, nt00m))
-    ntp0 = ring_q.ntt(parties0)
-    ntp1 = ntp0 if square else ring_q.ntt(parties1)
-    out_party = ring_q.intt(ring_q.add(ring_q.mul_mont(ntp0, nt10m[None]),
-                                       ring_q.mul_mont(ntp1, nt00m[None])))
-
-    # out_k += Ext(ct1_k, x); t_k = Ext(ct0_k, y)
-    out_party = ring_q.add(out_party,
-                           ksw.external_product(rp, dec1, x, level))
-    t = ksw.external_product(rp, dec0, y, level)
-    # out_0 += ModDown(sum Dec(t_k) . v_k); out_k += Ext(Dec t_k, u)
-    dec_t = ksw.decompose(rp, t, level)
-    v_sum = _psum(rp, ksw._sum_parties_ntt(
-        rp, dec_t, ksw.slice_swk(rp, v, level), level), level, group)
-    out0 = ring_q.add(out0, ksw.mod_down_qp(rp, v_sum, level))
-    out_party = ring_q.add(out_party,
-                           ksw.external_product(rp, dec_t, u_key, level))
-    return out0, out_party
-
-
 def _check_parties(k: int, group_size: int, key_rows: int) -> int:
     if k % group_size:
         raise ValueError(f"{k} parties do not split over {group_size} "
@@ -133,14 +87,26 @@ def mul_and_relin_party_sharded(
     size = mesh.size(mesh.mesh_dim_names.index(axis))
     k_loc = _check_parties(len(ids), size, rlk_block[0].shape[0])
     lo = mesh.get_local_rank(axis) * k_loc
-    d0 = ct0.data[..., :level + 1, :]
-    d1 = ct1.data[..., :level + 1, :]
-    out0, out_party = _local_mul(
-        rp, level, group, square, torch.stack([d0[0], d1[0]]),
-        d0[1 + lo:1 + lo + k_loc], d1[1 + lo:1 + lo + k_loc],
-        None if h0 is None else h0.digits, None if h1 is None else h1.digits,
-        rlk_block, rp.crs_at(-1, level))
-    data = torch.cat([out0[None], comm.all_gather_cat(out_party, group)])
+    # the rank's share: c0 and its parties' polys, keys and digits
+    rows = (0, *range(1 + lo, 1 + lo + k_loc))
+    d0 = ksw._rows(ct0.data[..., :level + 1, :], rows)
+    d1 = d0 if square else ksw._rows(ct1.data[..., :level + 1, :], rows)
+    loc = tuple(range(k_loc))
+    ring_q = rp.ring_q_at(level)
+
+    def psum(x):
+        return _psum(rp, x, level, group)
+
+    dec0, dec1 = ksw._operand_digits(rp, d0, d1, h0, h1, level)
+    (d_keys, b_keys, v_keys, u_key), i0, i1 = ksw._relin_keys(
+        rp, rlk_block, loc, loc, loc, level)
+    x = psum(ksw._aggregate_keys(rp, dec0, d_keys, level))
+    y = psum(ksw._aggregate_keys(rp, dec1, b_keys, level))
+    out = ring_q.intt(ksw._tensor_ntt(ring_q, d0, d1, loc, loc, loc))
+    z1_ntt, t_ntt = ksw._external_products(rp, dec0, dec1, x, y, level)
+    out = ksw.relinearize(rp, out, z1_ntt, t_ntt, v_keys, u_key, i0, i1,
+                          level, psum=psum)
+    data = torch.cat([out[:1], comm.all_gather_cat(out[1:], group)])
     return Ciphertext(ids=ids, data=data)
 
 

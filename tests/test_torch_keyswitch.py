@@ -107,6 +107,32 @@ def test_mul_and_relin_bit_identical(ctx, mode, k):
                                   np.asarray(want))
 
 
+@pytest.mark.parametrize("ctx,mode", [(1, "distinct"), (1, "square"),
+                                      (1, "hoisted"), (2, "distinct"),
+                                      (2, "square"), (2, "hoisted")],
+                         indirect=["ctx"])
+def test_sum_of_one_pair_is_the_mult(ctx, mode):
+    """mul_and_relin_sum of one pair equals mul_and_relin bit for bit, for
+    distinct, square and hoisted operands: both run the one tensor-terms
+    function and the one relinearize tail."""
+    ct0, ct1 = _operands(ctx, "square" if mode == "square" else "distinct",
+                         2)
+    tp = ctx["tparams"].rlwe
+    t0 = convert.rlwe_ciphertext(ct0.ids, np.asarray(ct0.ct.data), "cpu")
+    t1 = (t0 if mode == "square" else
+          convert.rlwe_ciphertext(ct1.ids, np.asarray(ct1.ct.data), "cpu"))
+    h0 = h1 = None
+    if mode == "hoisted":
+        h0, h1 = tksw.hoisted_form(tp, t0), tksw.hoisted_form(tp, t1)
+    ids, level = t0.ids, t0.level
+    keys = ctx["t_rlk"].stacked(ids)
+    one = tksw.mul_and_relin(tp, t0, t1, keys, level, h0, h1)
+    two = tksw.mul_and_relin_sum(tp, [(t0, t1, h0, h1)], keys, level)
+    assert two.ids == one.ids == ids
+    np.testing.assert_array_equal(convert.to_numpy(two.data),
+                                  convert.to_numpy(one.data))
+
+
 @functools.partial(jax.jit, static_argnames=("level",))
 def _j_mul_and_relin_hoisted(rp, c0, c1, rlk, level, h0, h1):
     return jksw.mul_and_relin(rp, c0, c1, rlk, level, h0, h1).data

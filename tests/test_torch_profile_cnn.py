@@ -59,7 +59,7 @@ def _want_spans(lo):
         "ksw.aggregate": mults + sum(sums),
         "ksw.tensor": mults + sum(sums) + len(sums),
         "ksw.external_product": 2 * mults + sum(sums) + len(sums) + switches,
-        "ksw.mod_down": 2 * mults + 3 * len(sums) + switches,
+        "ksw.mod_down": 2 * mults + 2 * len(sums) + switches,
         "ksw.v_sum": mults + len(sums) + switches,
         "rotations": 2 + log_gap + 4 + log_units + 3 + (n - 1),
     }
