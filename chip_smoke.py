@@ -50,8 +50,9 @@ Phases, one line each, then two JSON lines:
               within log2|err| <= -log2(scale) + logslots + 12; the NTT
               and key-switching kernels' (decompose_ntt, mod_down,
               mul_accum) launch counters must grow during the phase, the
-              rescale kernel's by one a request, and mod_up's stay at 0
-              (every decomposition is the fused one);
+              rescale kernel's and the tensor kernel's by one a request,
+              and mod_up's stay at 0 (every decomposition is the fused
+              one);
   5. bfv      the MKBFV path with the split NTT on (config.ntt_mxu_tail):
               PN15QP880, 4 parties, keys from the port's seeds on the card;
               two 4-party requests ((user0 + user1) x (user2 + user3))
@@ -59,7 +60,8 @@ Phases, one line each, then two JSON lines:
               fresh encryptions -> Evaluator.mul_relin_new -> decrypt,
               each exactly equal to the plaintext product mod t; the
               split's launch counters (the fused forward, the fused
-              inverse) and the key-switching kernels' must grow and the
+              inverse) and the key-switching kernels' must grow, the
+              tensor kernel's by one a request, and the
               full kernels', the head's, the tail's, the DIT-alone
               mode's and the fused decomposition's stay at 0 (with the
               split on, a decomposition is mod_up, then the split
@@ -76,7 +78,9 @@ Phases, one line each, then two JSON lines:
               (conv -> square -> fc1 -> square -> fc2) timed with CUDA
               events -> decrypt, each logit within
               rtol = atol = 5e-3 of plain_forward and the same argmax;
-              the NTT and key-switching launch counters must grow;
+              the NTT and key-switching launch counters must grow, the
+              tensor kernel's by one a mult or pair of a lazy sum (3 +
+              4 + n_diag an inference);
               a batched hoisted rotation over fc1's 7 indices equal to 7
               single ones bit for bit, and a conjugation that decrypts to
               the conjugate; the key-switched rotations of the requests
@@ -161,10 +165,15 @@ Phases, one line each, then two JSON lines:
               from the exact floor (the seed's, planted where it gives
               none); the rescale (nb 2) of the mult's output (5, 28) x
               2^15 and of a CNN ciphertext (3, 14) x 2^14 at
-              PN14QP433_CNN; each kernel's ms (single launches; mean of
-              10; the rescale's also as a CUDA-graph replay, the device's
-              time alone), its plain version's ms on the card and its
-              bound (keyswitch_bound); then the fused decomposition
+              PN14QP433_CNN; the tensor terms' kernel (tensor_kernel)
+              at the 4-party CKKS mult's (5, 28) x 2^15, the BFV mult's
+              over R (5, 56) x 2^15 and the CNN's conv (disjoint ids)
+              and square at (2 | 3, 14) x 2^14, with ptxas's registers
+              and spills; each kernel's ms (single launches; mean of 10;
+              the rescale's and the tensor terms' also as a CUDA-graph
+              replay, the device's time alone), the largest |kernel -
+              plain|, its plain version's ms on the card and its bound
+              (keyswitch_bound); then the fused decomposition
               (csrc/ntt.cu::decompose_ntt_kernel, phase_decompose) at the
               digits of both operands and of t, BFV's digits over R (4 x
               56 limbs) and a CNN hoisting (2 x 14 at 2^14), each bit for
@@ -179,8 +188,9 @@ from phase 3b's probe run: the wrapper's launches, those captured into
 its CUDA graphs (profile_ntt.graph_ms) included and the graphs' replays,
 which run without the wrapper, not; times, bounds and plain times, all single
 launches, and ms_mean10 of phase 3 at logN 15, ntt_variant's of phase 3b,
-mod_up's, mod_down's, mul_accum's and rescale's of phase 11 at the
-digits of both operands, zt, the v-sum and the mult's output; their
+mod_up's, mod_down's, mul_accum's, rescale's and tensor's of phase 11 at
+the digits of both operands, zt, the v-sum, the mult's output and the
+CKKS tensor terms; their
 launches, like the NTT's, over phases 4-6) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
@@ -226,7 +236,7 @@ KS_KERNELS = ("mod_up", "mod_down", "mul_accum")
 # phases 4 and 6 launch these; the rescale a CKKS request; every
 # decomposition there is the fused one (decompose_ntt), so no mod_up
 MAIN_COUNTS = ("ntt_fwd", "ntt_inv", "decompose_ntt", "mod_down",
-               "mul_accum", "rescale")
+               "mul_accum", "rescale", "tensor")
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("ntt_fwd", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:126"),   # _fwd_kernel
     ("ntt_inv", NTT_CU, "mkhe_tpu/ops/ntt_pallas.py:138"),   # _inv_kernel
@@ -252,6 +262,9 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     # the gadget digits (decompose_digits' mod_ups) and their forward NTT
     # (_fwd_kernel) in one launch
     ("decompose_ntt", NTT_CU, "mkhe_tpu/ops/basis.py:202"),
+    # the mult's tensor terms (jnp to_mont / mul_mont / add over the
+    # parties, which XLA fuses)
+    ("tensor", KEYSWITCH_CU, "mkhe_tpu/mkrlwe/keyswitch.py:274"),
 )
 NTT_MAIN = KERNELS[:6]   # the NTT kernels whose launches phases 4-6 count
 MAIN = NTT_MAIN + KERNELS[7:]   # every kernel phases 4-6 count
@@ -609,10 +622,11 @@ def phase_mult(params) -> dict:
     ms2, err2 = request(users[:2])
     launches = _counters()
     if (min(launches[k] for k in MAIN_COUNTS) < 1 or launches["rescale"] != 4
-            or launches["mod_up"]):
+            or launches["tensor"] != 4 or launches["mod_up"]):
         raise AssertionError(f"the main path missed a kernel, ran the "
-                             f"rescale other than once a request or "
-                             f"decomposed in two kernels: {launches}")
+                             f"rescale or the tensor terms other than once "
+                             f"a request or decomposed in two kernels: "
+                             f"{launches}")
     ms4 = [ms for ms, _ in runs4]
     print(f"[4 mult] PN15QP880 logN {params.logn} L {params.max_level + 1} "
           f"+ {params.rlwe.pcount} P, alpha {params.rlwe.alpha}; keygen "
@@ -702,9 +716,11 @@ def phase_bfv(params) -> dict:
         unsplit = ("ntt_tail", "ntt_inv_tailed", "ntt_fwd_head", "ntt_fwd",
                    "ntt_inv", "decompose_ntt")
         if (min(launches[k] for k in split + KS_KERNELS) < 1
+                or launches["tensor"] != 3
                 or any(launches[k] for k in unsplit)):
             raise AssertionError(f"the BFV path did not run the fused split "
-                                 f"kernels alone: {launches}")
+                                 f"kernels alone or ran the tensor terms "
+                                 f"other than once a request: {launches}")
         # the last 4-party mult again, in turns on, off, off, on
         turns = {True: [ms_on], False: []}
         for on in (False, False, True):
@@ -725,7 +741,8 @@ def phase_bfv(params) -> dict:
           f" 2-party {ms2:.3f}; last 4-party mult again, bit-identical, ms "
           f"split on {[round(m, 3) for m in turns[True]]} off "
           f"{[round(m, 3) for m in turns[False]]}; launches "
-          f"{ {k: launches[k] for k in split + KS_KERNELS} }; peak mem "
+          f"{ {k: launches[k] for k in split + KS_KERNELS + ('tensor',)} }"
+          f"; peak mem "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     return launches
 
@@ -757,9 +774,13 @@ def phase_cnn(params) -> dict:
     with profile_cnn.count_rotations() as rot:
         runs = [request(k) for k in range(3)]
     launches = _counters()
-    if min(launches[k] for k in MAIN_COUNTS) < 1 or launches["mod_up"]:
-        raise AssertionError(f"the CNN missed a kernel or decomposed in two "
-                             f"kernels: {launches}")
+    # the tensor terms: sq1, sq2, fc2's mult and the pairs of the conv's
+    # (4) and fc1's (n_diag) lazy sums, three inferences
+    if (min(launches[k] for k in MAIN_COUNTS) < 1 or launches["mod_up"]
+            or launches["tensor"] != 3 * (3 + 4 + lo.n_diag)):
+        raise AssertionError(f"the CNN missed a kernel, decomposed in two "
+                             f"kernels or ran the tensor terms other than "
+                             f"once a mult or pair: {launches}")
     # fc1's batched hoisted rotation against single ones, and conjugation
     _, _, img, ct = runs[-1]
     h = ev.hoisted_form(ct)
@@ -1475,10 +1496,14 @@ def keyswitch_bound(name: str, ins, out, width: int):
     12 an output (the wide products, the Montgomery fold, the
     correction), mod_down 12 more an output (Barrett, difference, REDC),
     mul_accum (width = terms) 2 a term and 12 an output, the rescale
-    (width = dropped limbs) 12 a step and output."""
+    (width = dropped limbs) 12 a step and output, the tensor terms (width
+    = products an output, at most 2) 4 a product and 16 an output (the
+    two REDCs)."""
     nbytes = 8 * (sum(t.numel() for t in ins) + out.numel())
     if name == "rescale":
         return profile_ntt.bound(nbytes, 12 * width * out.numel())
+    if name == "tensor":
+        return profile_ntt.bound(nbytes, (4 * width + 16) * out.numel())
     per_out = 2 * width + 12 + (12 if name == "mod_down" else 0)
     ops = out.numel() * per_out
     if name != "mul_accum":
@@ -1585,17 +1610,21 @@ def phase_decompose(params, params_bfv, params_cnn, ptxas: list) -> dict:
     return stats
 
 
-def phase_keyswitch(params, params_bfv, params_cnn) -> dict:
+def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
     """The key-switching kernels (csrc/keyswitch.cu) against their plain
     versions on the card, bit for bit, at the full shapes of one 4-party
     PN15QP880 mult at level 27 and BFV's 28 -> 28 mod_up, with the float32
     v boundary: the coefficients where the float32 v differs from the
     exact floor (basis_cuda.v_floors), planted where the seed gives none;
-    the rescale of the mult's output and of a PN14QP433_CNN ciphertext.
-    Kernel ms (single launches; mean of 10; the rescale's CUDA-graph
-    replay), plain ms, bound. Returns the {"kernels"} line's stats
-    (mod_up: the digits of both operands; mod_down: zt; mul_accum: the
-    v-sum; rescale: the mult's output)."""
+    the rescale of the mult's output and of a PN14QP433_CNN ciphertext;
+    the tensor terms of the 4-party CKKS mult, of the BFV mult over R and
+    of the CNN's conv (disjoint ids) and square, with tensor_kernel's
+    ptxas line. Kernel ms (single launches; mean of 10; the rescale's and
+    the tensor terms' CUDA-graph replay), plain ms, bound, the largest
+    |kernel - plain|.
+    Returns the {"kernels"} line's stats (mod_up: the digits of both
+    operands; mod_down: zt; mul_accum: the v-sum; rescale: the mult's
+    output; tensor: the CKKS mult's)."""
     phase_t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 40)
@@ -1648,6 +1677,18 @@ def phase_keyswitch(params, params_bfv, params_cnn) -> dict:
     ring_cnn = params_cnn.rlwe.ring_q_at(params_cnn.max_level)
     ct_out = _rand(gen, (5, 28, n), qq)
     ct_cnn = _rand(gen, (3, 14, ring_cnn.n), ring_cnn.q[:, None])
+    # the tensor terms' NTT-domain operands: CKKS over Q, BFV over R, the
+    # CNN's conv (one party each side) and square (both parties)
+    users = tuple(f"user{i}" for i in range(4))
+    lt_q, lt_r = bc.limb_tables(q, dev), bc.limb_tables(
+        params_bfv.ring_r.moduli, dev)
+    lt_cnn = bc.limb_tables(ring_cnn.moduli, dev)
+    nt0, nt1 = _rand(gen, (5, 28, n), qq), _rand(gen, (5, 28, n), qq)
+    rq_r = params_bfv.ring_r.q[:, None]
+    nt0_r, nt1_r = _rand(gen, (5, 56, n), rq_r), _rand(gen, (5, 56, n), rq_r)
+    cq = ring_cnn.q[:, None]
+    img, ker = (_rand(gen, (2, 14, ring_cnn.n), cq) for _ in range(2))
+    act = _rand(gen, (3, 14, ring_cnn.n), cq)
     # label, kernel, wrapper, plain, args, bound inputs, digit/term width
     cases = [
         ("mod_up", "digits of both operands (8, 28) -> (8, 14, 32)",
@@ -1674,6 +1715,19 @@ def phase_keyswitch(params, params_bfv, params_cnn) -> dict:
          bc.rescale, bc.rescale_plain, (ct_out, ring_q, 2), (ct_out,), 2),
         ("rescale", "CNN (3, 14) -> (3, 12) x 2^14, nb 2", bc.rescale,
          bc.rescale_plain, (ct_cnn, ring_cnn, 2), (ct_cnn,), 2),
+        ("tensor", "CKKS mult (5, 28) x (5, 28) -> (5, 28), 4 parties",
+         bc.tensor_terms, bc.tensor_terms_plain,
+         (nt0, nt1, users, users, users, lt_q), (nt0, nt1), 2),
+        ("tensor", "BFV over R (5, 56) x (5, 56) -> (5, 56)",
+         bc.tensor_terms, bc.tensor_terms_plain,
+         (nt0_r, nt1_r, users, users, users, lt_r), (nt0_r, nt1_r), 2),
+        ("tensor", "CNN conv (2, 14) x (2, 14) -> (3, 14) x 2^14, disjoint",
+         bc.tensor_terms, bc.tensor_terms_plain,
+         (img, ker, users[:1], users[1:2], users[:2], lt_cnn), (img, ker),
+         1),
+        ("tensor", "CNN square (3, 14) -> (3, 14) x 2^14",
+         bc.tensor_terms, bc.tensor_terms_plain,
+         (act, act, users[:2], users[:2], users[:2], lt_cnn), (act,), 2),
     ]
     rows, mism, err = [], 0, {}
     for name, label, kern, plain, args, ins, width in cases:
@@ -1690,15 +1744,17 @@ def phase_keyswitch(params, params_bfv, params_cnn) -> dict:
             ms_mean10=cuda_ms(lambda: kern(*args), 20),
             plain_ms=cuda_ms(lambda: plain(*args), 3, 1), bound_ms=b_ms,
             bound_by=b_by, graph_ms=graph_ms(lambda: kern(*args), 20)
-            if name == "rescale" else None))
+            if name in ("rescale", "tensor") else None))
         del got, want
     if mism:
         raise AssertionError(f"the key-switching kernels differ from their "
                              f"plain versions in {mism} values")
     print(f"[11 keyswitch] PN15QP880 level {level}, N 2^{rp.logn}: "
-          f"mismatches {mism} kernel vs plain (canonical inputs, the float32"
+          f"mismatches {mism} kernel vs plain, max abs err {err} "
+          f"(canonical inputs, the float32"
           f" v boundary in every digit: {boundary} as (seed's, checked) "
-          f"coefficients where float32 v != the exact floor); ms, mean of "
+          f"coefficients where float32 v != the exact floor); tensor_kernel"
+          f" ptxas: {_ptxas_of(ptxas, 'tensor_kernel')}; ms, mean of "
           f"10, plain ms, bound ms and share of it: "
           + "; ".join(f"{r['name']} {r['label']}: {r['ms']:.4f}, "
                       f"{r['ms_mean10']:.4f}, plain {r['plain_ms']:.4f}, "
@@ -1710,7 +1766,7 @@ def phase_keyswitch(params, params_bfv, params_cnn) -> dict:
                       for r in rows)
           + f"; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
     line = {"mod_up": rows[0], "mul_accum": rows[5], "mod_down": rows[6],
-            "rescale": rows[8]}
+            "rescale": rows[8], "tensor": rows[10]}
     return {name: dict(max_abs_err=err[name],
                        **{k: r[k] for k in ("ms", "ms_mean10", "plain_ms",
                                              "bound_ms", "bound_by")})
@@ -1733,10 +1789,10 @@ def main() -> None:
     phase_api(params, params_bfv, params_cnn)
     phase_parallel(params, params_bfv)
     phase_seeds()
-    ks = phase_keyswitch(params, params_bfv, params_cnn)
+    ks = phase_keyswitch(params, params_bfv, params_cnn, ptxas)
     ks["decompose_ntt"] = phase_decompose(params, params_bfv, params_cnn,
                                           ptxas)
-    for name in KS_KERNELS + ("rescale", "decompose_ntt"):
+    for name in KS_KERNELS + ("rescale", "decompose_ntt", "tensor"):
         stats[name] = dict(ks[name], launches=stats[name]["launches"])
     stats["ntt_variant"] = probe
     print(json.dumps({"kernels": [

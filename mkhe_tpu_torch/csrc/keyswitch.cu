@@ -1,7 +1,8 @@
 // Key-switching element-wise kernels for Hopper (sm_90a): the exact RNS
 // basis extension (mod_up, with a digit axis for the gadget decomposition),
-// the ModDown, the Montgomery contraction of the key products, and the CKKS
-// rescale (the divide-and-round by the last moduli).
+// the ModDown, the Montgomery contraction of the key products, the CKKS
+// rescale (the divide-and-round by the last moduli), and the KKLSS tensor
+// terms in the NTT domain (tensor_kernel, at the end of the file).
 //
 // These have no Pallas counterpart. In the JAX package XLA fuses each of
 // them into one element-wise pass of the jitted evaluator programs
@@ -14,7 +15,9 @@
 //     Montgomery reduction of the key contractions,
 //     mkhe_tpu/mkrlwe/keyswitch.py:82-175 and ops/modmath.py:207-227;
 //   rescale_kernel:          div_round_by_last_moduli, mkhe_tpu/ops/
-//     basis.py, every dropped limb in one pass (see the kernel).
+//     basis.py, every dropped limb in one pass (see the kernel);
+//   tensor_kernel:           the tensor terms of the mult,
+//     mkhe_tpu/mkrlwe/keyswitch.py:274-289 (see the kernel).
 // Each gives the canonical residue its plain PyTorch version gives
 // (ops/basis_cuda.py); a canonical residue is unique, so any exact u32/u64
 // arithmetic agrees bit for bit. The one inexact step, mod_up's float32
@@ -339,6 +342,89 @@ int launch_rescale(const RescaleArgs& a, int64_t n_polys, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The KKLSS tensor terms of two NTT-domain ciphertexts (mkrlwe/keyswitch.py
+// ::_tensor_ntt): out_0 = nt0_0 nt1_0 and, for each party j of the union,
+// out_j = nt0_0 nt1_r1(j) + nt0_r0(j) nt1_0 mod q, a term left out where the
+// party is absent from that operand (its row -1).
+//
+// It replaces no TPU kernel: in the JAX package XLA fuses the jnp tensor
+// terms (mkhe_tpu/mkrlwe/keyswitch.py:274-289, :376-389; to_mont, mul_mont
+// and add over the parties) into the jitted mult. The port ran them as ~60
+// int64 torch launches a 4-party mult; this is them in one pass.
+//
+// Bound: the bytes. Each coefficient reads the 1 + k0 rows of nt0 and the
+// 1 + k1 rows of nt1 once and writes the 1 + k outputs once, int64: 110 MB
+// at 4 parties over 28 limbs of 2^15 (0.033 ms at 3.35 TB/s), 220 MB over
+// BFV's 56 (0.066 ms), for two wide products and one reduction an output.
+// So one thread owns a pair of neighbouring coefficients (16-byte loads and
+// stores, a warp on 512 contiguous bytes of a row), keeps row 0 of both
+// operands in registers for all 1 + k outputs and reads every party row
+// once. Each output is one u64 sum of at most two products of canonical
+// residues (< 2^59, q < 2^29), reduced once exactly: its Montgomery residue
+// acc 2^-32 (mont_wide), times 2^64 mod q through one more REDC, gives acc
+// mod q, the canonical residue the torch chain gives (unique, so bit for
+// bit). The row map rides in the launch's parameters (__grid_constant__,
+// read from the constant bank): no host-to-device copy, so a launch is
+// captured into a CUDA graph as it is.
+constexpr int kTensorOut = 32;   // outputs a launch's row map holds
+
+struct TensorArgs {
+  const int64_t* nt0;   // (rows0, PL, N) contiguous
+  const int64_t* nt1;   // (rows1, PL, N) contiguous
+  int64_t* out;         // (nout, PL, N) contiguous
+  const uint32_t* mods;   // (L, 4) words (basis_cuda.limb_tables)
+  int64_t m;            // PL N, the elements of a row
+  int L, n, nblk, nout;
+  int r0[kTensorOut], r1[kTensorOut];   // rows of nt0 / nt1; -1: no term
+};
+
+__device__ __forceinline__ uint64_t lo32(int64_t v) {
+  return static_cast<uint32_t>(v);
+}
+
+// acc mod q, canonical, for any u64 acc: mont_wide's acc 2^-32 mod q,
+// times 2^64 mod q, REDC'd (the product is below q^2 < q 2^32).
+__device__ __forceinline__ uint32_t mod_wide(uint64_t acc, uint32_t q,
+                                             uint32_t qn, uint32_t bar,
+                                             uint32_t r2) {
+  return redc(static_cast<uint64_t>(mont_wide(acc, q, qn, bar)) * r2, q, qn);
+}
+
+// One thread per (polynomial-limb row pl of the flattened [B,] L axes,
+// coefficient pair c); blockIdx.x = pl * nblk + coefficient block.
+__global__ void __launch_bounds__(kThreads)
+tensor_kernel(const __grid_constant__ TensorArgs a) {
+  const int64_t pl = blockIdx.x / a.nblk;
+  const int c = ((blockIdx.x % a.nblk) * kThreads + threadIdx.x) * 2;
+  if (c >= a.n) return;
+  const int l = static_cast<int>(pl % a.L);
+  const uint32_t q = a.mods[4 * l], qn = a.mods[4 * l + 1];
+  const uint32_t bar = a.mods[4 * l + 2], r2 = a.mods[4 * l + 3];
+  const int64_t e = pl * a.n + c;
+  const longlong2 x0 = *reinterpret_cast<const longlong2*>(a.nt0 + e);
+  const longlong2 y0 = *reinterpret_cast<const longlong2*>(a.nt1 + e);
+  for (int j = 0; j < a.nout; ++j) {
+    const int r0 = a.r0[j], r1 = a.r1[j];
+    uint64_t s_lo = 0, s_hi = 0;
+    if (r1 >= 0) {
+      const longlong2 y = r1 == 0 ? y0
+          : *reinterpret_cast<const longlong2*>(a.nt1 + r1 * a.m + e);
+      s_lo = lo32(x0.x) * lo32(y.x);
+      s_hi = lo32(x0.y) * lo32(y.y);
+    }
+    if (r0 >= 0) {   // a party row (out_0 takes nt1's row 0 alone)
+      const longlong2 x =
+          *reinterpret_cast<const longlong2*>(a.nt0 + r0 * a.m + e);
+      s_lo += lo32(x.x) * lo32(y0.x);
+      s_hi += lo32(x.y) * lo32(y0.y);
+    }
+    longlong2 o;
+    o.x = mod_wide(s_lo, q, qn, bar, r2);
+    o.y = mod_wide(s_hi, q, qn, bar, r2);
+    *reinterpret_cast<longlong2*>(a.out + j * a.m + e) = o;
+  }
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes, ops/basis_cuda.py). Every pointer
@@ -371,7 +457,8 @@ extern "C" int mkhe_basis(const void* x, long long sxp, long long sxl,
 
 // dims: nt0, nt1, no0, no1, no2, then a's strides at0, at1, ao0, ao1, ao2,
 // al, then b's bt0, bt1, bo0, bo1, bo2, bl; out (no0 no1 no2, L, N)
-// contiguous; mods (L, 4) u32: q, -q^-1 mod 2^32, floor(2^32 / q), 0.
+// contiguous; mods (L, 4) u32: q, -q^-1 mod 2^32, floor(2^32 / q) and
+// 2^64 mod q (read by the tensor kernel only).
 extern "C" int mkhe_mul_accum(const void* a, const void* b, void* out,
                               const void* mods, const long long* dims,
                               int L, int n, void* stream) {
@@ -420,4 +507,37 @@ extern "C" int mkhe_rescale(const void* x, long long sxp, long long sxl,
   if (nb <= 2) return launch_rescale<2>(a, n_polys, stream);
   if (nb <= 4) return launch_rescale<4>(a, n_polys, stream);
   return launch_rescale<8>(a, n_polys, stream);
+}
+
+// The tensor terms: nt0 (rows0, n_pl, N), nt1 (rows1, n_pl, N) and out
+// (nout, n_pl, N) contiguous and 16-byte aligned, N even; mods (L, 4) u32
+// as above, limb l of row pl is pl mod L; rows: nout pairs (r0, r1).
+// Outputs beyond one launch's row map take further launches, kTensorOut
+// outputs each.
+extern "C" int mkhe_tensor(const void* nt0, const void* nt1, void* out,
+                           const void* mods, const int* rows, int nout,
+                           long long n_pl, int L, int n, void* stream) {
+  const int nblk = (n / 2 + kThreads - 1) / kThreads;
+  if (nout < 1 || n_pl < 1 || L < 1 || n_pl % L || n < 2 || n % 2 ||
+      n_pl * nblk > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TensorArgs a{static_cast<const int64_t*>(nt0),
+               static_cast<const int64_t*>(nt1),
+               nullptr, static_cast<const uint32_t*>(mods),
+               n_pl * n, L, n, nblk, 0, {}, {}};
+  for (int j0 = 0; j0 < nout; j0 += kTensorOut) {
+    a.out = static_cast<int64_t*>(out) + j0 * a.m;
+    a.nout = nout - j0 < kTensorOut ? nout - j0 : kTensorOut;
+    for (int j = 0; j < a.nout; ++j) {
+      a.r0[j] = rows[2 * (j0 + j)];
+      a.r1[j] = rows[2 * (j0 + j) + 1];
+      if (a.r0[j] < -1 || a.r1[j] < -1 || (a.r0[j] < 0 && a.r1[j] < 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    tensor_kernel<<<static_cast<unsigned>(n_pl * nblk), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -219,21 +219,13 @@ def _aggregate(params: Parameters, dec0, dec1, d_keys, b_keys, level: int):
 def _tensor_ntt(ring: Ring, d0, d1, ids0, ids1, ids) -> torch.Tensor:
     """The tensor terms of ct0 x ct1 over the ring, from the coefficient
     domain (d1 is d0 for the square: one NTT) into the NTT domain,
-    (1 + k, L, N): out_0 = ct0_0 ct1_0, out_j = ct0_0 ct1_j + ct0_j ct1_0."""
+    (1 + k, L, N): out_0 = ct0_0 ct1_0, out_j = ct0_0 ct1_j + ct0_j ct1_0
+    (basis_cuda.tensor_terms: one kernel launch on the card)."""
     nt0 = ring.ntt(d0)
     nt1 = nt0 if d1 is d0 else ring.ntt(d1)
-    nt0_0m = ring.to_mont(nt0[0])
-    nt1_0m = ring.to_mont(nt1[0])
-    out = [ring.mul_mont(nt1[0], nt0_0m)]
-    for pid in ids:
-        acc = None
-        if pid in ids0:
-            acc = ring.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
-        if pid in ids1:
-            t = ring.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
-            acc = t if acc is None else ring.add(acc, t)
-        out.append(acc)
-    return torch.stack(out)
+    return basis_cuda.tensor_terms(
+        nt0, nt1, ids0, ids1, ids,
+        basis_cuda.limb_tables(ring.moduli, ring.device))
 
 
 def _external_products(params: Parameters, dec0, dec1, x, y, level: int):

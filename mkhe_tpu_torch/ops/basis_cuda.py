@@ -16,7 +16,10 @@ counterpart):
              keyswitch.py:82-175, ops/modmath.py:207-227), the contraction
              of _aggregate_keys, external_product_ntt and _sum_parties_ntt;
   rescale    rescale_kernel: the CKKS rescale, mkhe_tpu/ops/basis.py's
-             div_round_by_last_moduli, every dropped limb in one pass.
+             div_round_by_last_moduli, every dropped limb in one pass;
+  tensor     tensor_kernel: the mult's tensor terms in the NTT domain
+             (mkhe_tpu/mkrlwe/keyswitch.py:274-289, `tensor_terms`), each
+             operand row read once, every output reduced once.
 
 and of csrc/ntt.cu's decompose_ntt_kernel, the gadget digits and their
 forward NTT in one launch (`decompose_ntt`: ring.ntt(decompose(x)) bit for
@@ -26,8 +29,9 @@ wherever the ring's ntt is the full forward kernel.
 
 Every wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version (`mod_up_plain`, `decompose_plain`, `decompose_ntt_plain`,
-`mod_down_plain`, `mul_accum_plain`, `rescale_plain`: the int64 torch code
-the port ran before the kernels, unchanged in result), a CUDA tensor
+`mod_down_plain`, `mul_accum_plain`, `rescale_plain`, `tensor_terms_plain`:
+the int64 torch code the port ran before the kernels, unchanged in
+result), a CUDA tensor
 launches the kernel or raises. There is no fallback from one to the
 other. The
 wrappers check shapes and devices on both routes, allocate outputs with
@@ -63,6 +67,7 @@ FOLD = 32            # mul_accum_kernel: terms between two folds of the sum
 TERM_AXES, OUTER_AXES = 2, 3   # mul_accum_kernel's axes, after merging
 MAX_DROP = 8         # rescale_kernel: the dropped limbs it holds in registers
 MAX_RESCALE_WORDS = 12288   # its table, (2 + 3 nb) L words, in 48 KiB
+MAX_TENSOR_OUT = 32  # tensor_kernel: outputs a launch's row map holds
 U32 = 1 << 32
 
 # Kernel launches since the last reset_counters(); only a launch of the
@@ -72,22 +77,25 @@ mod_down_launches = 0
 mul_accum_launches = 0
 rescale_launches = 0
 decompose_ntt_launches = 0
+tensor_launches = 0
 
 
 def reset_counters() -> None:
     global mod_up_launches, mod_down_launches, mul_accum_launches
-    global rescale_launches, decompose_ntt_launches
+    global rescale_launches, decompose_ntt_launches, tensor_launches
     mod_up_launches = mod_down_launches = mul_accum_launches = 0
-    rescale_launches = decompose_ntt_launches = 0
+    rescale_launches = decompose_ntt_launches = tensor_launches = 0
 
 
 def counters() -> dict:
     """Launches of each kernel since the last reset_counters()
     (`decompose_ntt`: the fused digits; a decomposition that takes the
-    composition counts one `mod_up` and one `ntt_fwd` instead)."""
+    composition counts one `mod_up` and one `ntt_fwd` instead; `tensor`:
+    one a mult's tensor terms up to MAX_TENSOR_OUT - 1 parties)."""
     return {"mod_up": mod_up_launches, "mod_down": mod_down_launches,
             "mul_accum": mul_accum_launches, "rescale": rescale_launches,
-            "decompose_ntt": decompose_ntt_launches}
+            "decompose_ntt": decompose_ntt_launches,
+            "tensor": tensor_launches}
 
 
 @functools.lru_cache(maxsize=1)
@@ -107,6 +115,9 @@ def load() -> ctypes.CDLL:
     lib.mkhe_decompose_ntt.argtypes = [vp, ll, ll] + [vp] * 5 + \
         [ci] * 10 + [vp]
     lib.mkhe_decompose_ntt.restype = ci
+    lib.mkhe_tensor.argtypes = [vp, vp, vp, vp, ctypes.POINTER(ci), ci, ll,
+                                ci, ci, vp]
+    lib.mkhe_tensor.restype = ci
     return lib
 
 
@@ -128,7 +139,8 @@ def _qinv_neg(q: int) -> int:
 
 def _limb_words(q: int, extra: int = 0) -> tuple:
     """A modulus's four kernel words: q, -q^-1 mod 2^32, floor(2^32 / q)
-    and `extra` (P^-1 in Montgomery form for ModDown)."""
+    and `extra` (P^-1 in Montgomery form for ModDown, 2^64 mod q in
+    limb_tables)."""
     return q, _qinv_neg(q), U32 // q, extra
 
 
@@ -270,8 +282,10 @@ def mod_down_tables(qm: Tuple[int, ...], pm: Tuple[int, ...],
 
 @dataclasses.dataclass(frozen=True)
 class LimbTables:
-    """Per-limb constants of a contraction: q and 2^-32 mod q (plain),
-    (L, 4) kernel words (_limb_words)."""
+    """Per-limb constants of a contraction and of the tensor terms: q
+    and 2^-32 mod q (plain), (L, 4) kernel words (_limb_words with 2^64
+    mod q, which takes the tensor kernel's Montgomery residue back to the
+    plain one)."""
     q: torch.Tensor
     r_inv: torch.Tensor
     pack: torch.Tensor
@@ -281,7 +295,8 @@ class LimbTables:
 def limb_tables(moduli: Tuple[int, ...], device: torch.device
                 ) -> LimbTables:
     _check_moduli(moduli)
-    words = np.array([_limb_words(q) for q in moduli], np.uint64)
+    words = np.array([_limb_words(q, (1 << 64) % q) for q in moduli],
+                     np.uint64)
     return LimbTables(
         q=_i64(moduli, device),
         r_inv=_i64((mm.mont_constants(q)[0] for q in moduli), device),
@@ -653,6 +668,70 @@ def rescale(x, ring_q: Ring, nb: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def tensor_rows(ids0: Tuple, ids1: Tuple, ids: Tuple
+                ) -> Tuple[Tuple[int, int], ...]:
+    """The tensor terms' row map, one (r0, r1) an output: out_0 =
+    nt0_0 nt1_0 is (-1, 0); out_j, for party ids[j-1], is nt0_0 nt1_r1 +
+    nt0_r0 nt1_0 with r0 = 1 + its index in ids0 and r1 = 1 + its index
+    in ids1, -1 (no term) where the operand lacks the party."""
+    rows = [(-1, 0)]
+    for pid in ids:
+        r = (1 + ids0.index(pid) if pid in ids0 else -1,
+             1 + ids1.index(pid) if pid in ids1 else -1)
+        if r == (-1, -1):
+            raise ValueError(f"party {pid!r} is in neither operand")
+        rows.append(r)
+    return tuple(rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_words(rows) -> ctypes.Array:
+    """tensor_rows as the C entry's int array, r0 and r1 an output."""
+    return (ctypes.c_int * (2 * len(rows)))(*itertools.chain(*rows))
+
+
+def tensor_terms(nt0, nt1, ids0, ids1, ids, t: LimbTables) -> torch.Tensor:
+    """The KKLSS tensor terms of NTT-domain canonical nt0 (1 + k0, ..., L,
+    N) and nt1 (1 + k1, ..., L, N) (the same tensor for a square): (1 + k,
+    ..., L, N) over the parties ids, canonical, out_0 = nt0_0 nt1_0 and
+    out_j = nt0_0 nt1_j + nt0_j nt1_0 mod q_l, a term left out where
+    party j is absent from that operand (tensor_rows). On a CUDA tensor
+    the tensor kernel (one launch per MAX_TENSOR_OUT outputs: one at the
+    main path's sizes), which takes contiguous, 16-byte aligned operands
+    (ring.ntt's outputs), N even, and raises otherwise; on a CPU tensor
+    `tensor_terms_plain`."""
+    global tensor_launches
+    rows = tensor_rows(tuple(ids0), tuple(ids1), tuple(ids))
+    _check_on(nt0, nt1, t.pack)
+    _check_on(nt1)
+    _check_limbs(nt0, t.q.shape[0])
+    if (nt0.shape[0] != 1 + len(ids0)
+            or nt1.shape != (1 + len(ids1), *nt0.shape[1:])):
+        raise ValueError(f"tensor terms of {tuple(nt0.shape)} and "
+                         f"{tuple(nt1.shape)} over {len(ids0)} and "
+                         f"{len(ids1)} parties")
+    if not _route(nt0):
+        return tensor_terms_plain(nt0, nt1, ids0, ids1, ids, t)
+    n = nt0.shape[-1]
+    if (n % 2 or not (nt0.is_contiguous() and nt1.is_contiguous())
+            or (nt0.data_ptr() | nt1.data_ptr()) % 16):
+        raise ValueError("the tensor kernel takes contiguous, 16-byte "
+                         "aligned operands, N even")
+    out = torch.empty((len(rows), *nt0.shape[1:]), dtype=torch.int64,
+                      device=nt0.device)
+    guard, stream = _on(nt0.device)
+    with guard:
+        err = load().mkhe_tensor(
+            nt0.data_ptr(), nt1.data_ptr(), out.data_ptr(), t.pack.data_ptr(),
+            _row_words(rows), len(rows), nt0.numel() // (nt0.shape[0] * n),
+            t.q.shape[0], n, stream)
+    if err != 0:
+        raise RuntimeError(f"mkhe_tensor launch failed: CUDA error {err}")
+    tensor_launches += -(-len(rows) // MAX_TENSOR_OUT)
+    return out
+
+
 # ----------------------------------------------------------------------------
 # Plain versions
 # ----------------------------------------------------------------------------
@@ -729,6 +808,19 @@ def mul_accum_plain(a, b, nterms: int, t: LimbTables) -> torch.Tensor:
     return mm.mul_accum(((a[i], b[i])
                          for i in itertools.product(*map(range, terms))),
                         t.q[:, None], t.r_inv[:, None])
+
+
+def tensor_terms_plain(nt0, nt1, ids0, ids1, ids, t: LimbTables
+                       ) -> torch.Tensor:
+    """tensor_terms as int64 torch ops: each output's sum of at most two
+    products of canonical residues (< 2^58 each), then one % q."""
+    out = []
+    for r0, r1 in tensor_rows(tuple(ids0), tuple(ids1), tuple(ids)):
+        acc = nt0[0] * nt1[r1] if r1 >= 0 else None
+        if r0 >= 0:
+            acc = nt0[r0] * nt1[0] if acc is None else acc + nt0[r0] * nt1[0]
+        out.append(acc)
+    return torch.stack(out) % t.q[:, None]
 
 
 # ----------------------------------------------------------------------------

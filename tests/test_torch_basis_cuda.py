@@ -17,7 +17,11 @@ mkhe_tpu (tolerance: exact, every output is a canonical residue):
   pass's digit values, emulated from the packed words and the strided
   source as the kernel reads them, against decompose_plain; which route
   ops/basis.decompose_ntt takes; and the kernel's name against the
-  benchmark's kernel maps.
+  benchmark's kernel maps;
+- the tensor terms' kernel (csrc/keyswitch.cu::tensor_kernel): its row
+  map, its arithmetic emulated in numpy from limb_tables' words (the
+  u64 sum, mont_wide, the REDC by 2^64 mod q) against tensor_terms_plain,
+  the wrapper's checks, and its name against the kernel maps (none).
 
 logN 8, one torch thread; the kernels themselves run in
 tests/test_torch_cuda.py on a card."""
@@ -641,3 +645,93 @@ def test_decompose_ntt_kernel_is_an_ntt_kernel():
     assert "ntt_kernel" in name and "basis_kernel" not in name
     assert any(f in name for f in maps["ntt"])
     assert not any(f in name for f in maps["keyswitch"])
+
+
+# -- the tensor terms ------------------------------------------------------------
+
+def emulate_tensor(nt0, nt1, rows, t):
+    """tensor_kernel with limb_tables' words, as csrc/keyswitch.cu
+    computes it: each output's u64 sum of at most two products, mont_wide
+    (acc 2^-32 mod q), then REDC of that times 2^64 mod q."""
+    words = t.pack.numpy().view(np.uint32).astype(np.uint64)
+    q, qn, bar, r2 = (words[:, i][:, None] for i in range(4))
+    a = nt0.numpy().astype(np.uint64) & M32
+    b = nt1.numpy().astype(np.uint64) & M32
+    out = []
+    for r0, r1 in rows:
+        acc = np.zeros(a.shape[1:], np.uint64)
+        if r1 >= 0:
+            acc = acc + a[0] * b[r1]
+        if r0 >= 0:
+            acc = acc + a[r0] * b[0]
+        out.append(_redc(_mont_wide(acc, q, qn, bar) * r2, q, qn))
+    return np.stack(out).astype(np.int64)
+
+
+def test_tensor_rows():
+    """The row map: out_0 from both row 0s, then per party of the union
+    the row in each operand that holds it, -1 where it lacks the party;
+    a party in neither operand raises."""
+    assert bc.tensor_rows(("a", "b"), ("a", "b"), ("a", "b")) == (
+        (-1, 0), (1, 1), (2, 2))
+    assert bc.tensor_rows(("a",), ("b",), ("a", "b")) == (
+        (-1, 0), (1, -1), (-1, 1))
+    assert bc.tensor_rows(("b",), ("a", "b", "c"), ("a", "b", "c")) == (
+        (-1, 0), (-1, 1), (1, 2), (-1, 3))
+    with pytest.raises(ValueError):
+        bc.tensor_rows(("a",), ("b",), ("a", "c"))
+
+
+@pytest.mark.parametrize("moduli", ["q", "near_2^29"])
+def test_tensor_kernel_arithmetic(moduli):
+    """The kernel's word arithmetic equals tensor_terms_plain over 4
+    parties in both operands, disjoint ids and a subset, residues 0, 1 and
+    q - 1 included (the largest sums, 2 (q - 1)^2 < 2^59)."""
+    mods = Q[:6] if moduli == "q" else ntt_primes(LOGN, 28.99, 6)
+    t = bc.limb_tables(tuple(mods), torch.device("cpu"))
+    q = np.array(mods, np.uint64)[:, None]
+    users = ("u0", "u1", "u2", "u3")
+    for ids0, ids1 in ((users, users), (users[:1], users[1:2]),
+                       (users[2:3], users[:3])):
+        ids = tuple(sorted(set(ids0) | set(ids1)))
+        nt0 = _rand((1 + len(ids0), 2, len(mods), N), 1, q)
+        nt1 = _rand((1 + len(ids1), 2, len(mods), N), 2, q)
+        for x in (nt0, nt1):
+            x[..., 0] = 0
+            x[..., 1] = 1
+            x[..., 2:6] = torch.from_numpy(q.astype(np.int64)) - 1
+        want = bc.tensor_terms_plain(nt0, nt1, ids0, ids1, ids, t)
+        _same(emulate_tensor(nt0, nt1, bc.tensor_rows(ids0, ids1, ids), t),
+              want)
+
+
+def test_tensor_terms_wrapper_checks():
+    """Operands whose party rows do not match their ids, whose trailing
+    axes differ or whose limbs are not the tables', and an int32 operand,
+    raise on the CPU route too; nothing counts as a launch."""
+    t = bc.limb_tables(tuple(Q[:4]), torch.device("cpu"))
+    x = _rand((3, 4, N), 3, np.array(Q[:4], np.uint64)[:, None])
+    ids = ("a", "b")
+    bc.reset_counters()
+    assert bc.tensor_terms(x, x, ids, ids, ids, t).shape == (3, 4, N)
+    for a, b, i0 in ((x, x, ids[:1]), (x, x[..., :N // 2], ids),
+                     (x[:, :3], x[:, :3], ids), (x.to(torch.int32), x, ids)):
+        with pytest.raises((ValueError, TypeError)):
+            bc.tensor_terms(a, b, i0, ids, ids, t)
+    assert bc.counters()["tensor"] == 0
+
+
+def test_tensor_kernel_is_in_no_kernel_map():
+    """mkhe_tensor launches csrc/keyswitch.cu's tensor_kernel, a name that
+    no fragment of hebench/kernel_maps/*.json matches: hebench/work.py
+    counts no words for the tensor terms, so no roofline takes its time."""
+    root = Path(__file__).resolve().parent.parent
+    src = (ntt_cuda.CSRC / "keyswitch.cu").read_text()
+    entry = src[src.index('extern "C" int mkhe_tensor'):]
+    assert set(re.findall(r"(\w+)<<<", entry)) == {"tensor_kernel"}
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+"
+                     r"tensor_kernel\(const __grid_constant__ TensorArgs a\)",
+                     src)
+    for path in (root / "hebench" / "kernel_maps").glob("*.json"):
+        for frag in json.loads(path.read_text())["kernels"]:
+            assert frag not in "tensor_kernel", (path.name, frag)

@@ -2,7 +2,8 @@
 kernels in csrc/ntt_split.cu in their five modes, and the NTT cost probe's
 variant in csrc/ntt_variant.cu) and the key-switching kernels
 (csrc/keyswitch.cu: mod_up with its digit axis, mod_down, mul_accum,
-the rescale) against their plain PyTorch versions on the card, bit for bit;
+the rescale, the tensor terms) against their plain PyTorch versions on the
+card, bit for bit;
 the fused decomposition (csrc/ntt.cu::decompose_ntt_kernel) against the
 composition it replaces, bit for bit; rotation, conjugation and the CNN
 pipeline on the card against the same calls on the CPU; and threefry's
@@ -1153,7 +1154,7 @@ def test_keyswitch_kernels_count_and_raise(gen):
     bc.mod_up_plain(x[:, :2], up)
     bc.mul_accum_plain(c, c, 1, lt)
     assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1,
-                             "rescale": 0, "decompose_ntt": 0}
+                             "rescale": 0, "decompose_ntt": 0, "tensor": 0}
     with pytest.raises(ValueError):
         bc.mod_up(x[:, :3], up)
     with pytest.raises(TypeError):
@@ -1172,7 +1173,7 @@ def test_keyswitch_kernels_count_and_raise(gen):
     with pytest.raises(ValueError):
         bc.mul_accum(y, z, 1, lt)
     assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1,
-                             "rescale": 0, "decompose_ntt": 0}
+                             "rescale": 0, "decompose_ntt": 0, "tensor": 0}
 
 
 @pytest.mark.parametrize("kernel", ["mod_up", "decompose", "mod_down",
@@ -1453,3 +1454,134 @@ def test_rescale_wrapper_raises_on_cuda(gen):
     with pytest.raises(ValueError):
         bc.rescale(x[:, :4], Ring.create(q + big, 10, "cuda"), 1)
     assert bc.counters()["rescale"] == 0
+
+
+# ----------------------------------------------------------------------------
+# The tensor terms (csrc/keyswitch.cu::tensor_kernel, basis_cuda.tensor_terms)
+# ----------------------------------------------------------------------------
+
+_USERS = ("u0", "u1", "u2", "u3")
+
+
+def _tensor_cases():
+    """(name, moduli, logN, batch axes, ids0, ids1, square) at the main
+    path's shapes: the CKKS mult (5, 28, 2^15) and a subset of its
+    parties, each in both operand orders; the batched BFV mult over R (5,
+    B = 2, 56, 2^15); the CNN's (3, 14, 2^14) with disjoint and with equal
+    ids; the square; 40 parties, more outputs than one launch holds."""
+    q, _, qmul = _ks_moduli(15)
+    q14, _, _ = _ks_moduli(14)
+    return [
+        ("ckks 4 parties", q, 15, (), _USERS, _USERS, False),
+        ("ckks subset", q, 15, (), _USERS[1:3], _USERS, False),
+        ("ckks subset, operands swapped", q, 15, (), _USERS, _USERS[1:3],
+         False),
+        ("bfv R batched", q + qmul, 15, (2,), _USERS, _USERS, False),
+        ("cnn disjoint", q14[:14], 14, (), _USERS[:1], _USERS[1:2], False),
+        ("cnn equal", q14[:14], 14, (), _USERS[:2], _USERS[:2], False),
+        ("cnn square", q14[:14], 14, (), _USERS[:2], _USERS[:2], True),
+        ("40 parties", q14[:2], 10, (2,), tuple(range(40)),
+         tuple(range(0, 40, 2)), False),
+    ]
+
+
+def _tensor_operands(gen, moduli, logn, batch, ids0, ids1, square):
+    bound = torch.tensor(moduli, device="cuda")[:, None]
+    nt0 = _rand(gen, (1 + len(ids0), *batch, len(moduli), 1 << logn), bound)
+    nt1 = nt0 if square else _rand(gen, (1 + len(ids1), *batch, len(moduli),
+                                         1 << logn), bound)
+    for x in (nt0, nt1):   # the largest sums
+        x[..., :4] = bound - 1
+    return nt0, nt1
+
+
+def test_tensor_kernel_matches_plain(gen):
+    """The tensor kernel against tensor_terms_plain bit for bit at every
+    shape of _tensor_cases; one launch a call, two for 41 outputs."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    for name, mods, logn, batch, ids0, ids1, square in _tensor_cases():
+        nt0, nt1 = _tensor_operands(gen, mods, logn, batch, ids0, ids1,
+                                    square)
+        ids = tuple(sorted(set(ids0) | set(ids1)))
+        t = bc.limb_tables(tuple(mods), torch.device("cuda"))
+        bc.reset_counters()
+        got = bc.tensor_terms(nt0, nt1, ids0, ids1, ids, t)
+        assert bc.counters()["tensor"] == (2 if len(ids) >= 32 else 1), name
+        want = bc.tensor_terms_plain(nt0, nt1, ids0, ids1, ids, t)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (1 + len(ids), *nt0.shape[1:])
+        assert torch.equal(got, want), name
+
+
+def test_tensor_kernel_in_captured_graph(gen):
+    """The tensor wrapper, warmed up once, captures into a CUDA graph in the
+    default (global) capture error mode (its row map rides in the launch's
+    parameters); two replays, the second on new inputs copied into the
+    static ones, equal tensor_terms_plain."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    q14, _, _ = _ks_moduli(14)
+    mods = tuple(q14[:14])
+    nt0, nt1 = _tensor_operands(gen, mods, 14, (), _USERS[:2], _USERS[1:],
+                                False)
+    ids = _USERS
+    t = bc.limb_tables(mods, torch.device("cuda"))
+    bc.tensor_terms(nt0, nt1, _USERS[:2], _USERS[1:], ids, t)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        got = bc.tensor_terms(nt0, nt1, _USERS[:2], _USERS[1:], ids, t)
+    for replay in range(2):
+        if replay:
+            new0, new1 = _tensor_operands(gen, mods, 14, (), _USERS[:2],
+                                          _USERS[1:], False)
+            nt0.copy_(new0)
+            nt1.copy_(new1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, bc.tensor_terms_plain(
+            nt0, nt1, _USERS[:2], _USERS[1:], ids, t))
+
+
+def test_tensor_launches_once_per_mult(gen):
+    """One mul_relin_new launches the tensor kernel once and runs no
+    to_mont chain; mul_ptxt_new launches it never."""
+    import numpy as np
+    from mkhe_tpu_torch import mkckks
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    params, rlk, _, _, fresh = _fuse_ctx(gen, rots=())
+    ev = mkckks.Evaluator(params)
+    a, b = fresh()
+    pt = torch.from_numpy(mkckks.Encryptor(params, seed=90).encode_msg(
+        mkckks.Message(value=np.full(params.slots, 0.25))).astype(
+            np.int64)).cuda()
+    for call, want in ((lambda: ev.mul_relin_new(a, b, rlk), 1),
+                       (lambda: ev.mul_relin_new(a, a, rlk), 1),
+                       (lambda: ev.mul_ptxt_new(a, pt, params.scale), 0)):
+        bc.reset_counters()
+        call()
+        torch.cuda.synchronize()
+        assert bc.counters()["tensor"] == want
+
+
+def test_tensor_wrapper_raises_on_cuda(gen):
+    """Operands that are not contiguous, a start not 16-byte aligned,
+    int32, tables on the CPU and a party count that does not match the
+    rows raise on a CUDA tensor (no fallback to the torch chain); nothing
+    launches."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    q14, _, _ = _ks_moduli(10)
+    mods = tuple(q14[:4])
+    ids = _USERS[:2]
+    nt0, nt1 = _tensor_operands(gen, mods, 10, (2,), ids, ids, False)
+    t = bc.limb_tables(mods, torch.device("cuda"))
+    # contiguous, but 8 bytes past an aligned start
+    shifted = _rand(gen, (3 * 4 * 1024 + 1,), 1 << 28)[1:].view(3, 4, 1024)
+    bc.reset_counters()
+    for a, b, tab, i0 in (
+            (nt0.transpose(1, 2), nt1.transpose(1, 2), t, ids),
+            (shifted, shifted, t, ids),
+            (nt0.to(torch.int32), nt1, t, ids),
+            (nt0, nt1, bc.limb_tables(mods, torch.device("cpu")), ids),
+            (nt0, nt1, t, ids[:1])):
+        with pytest.raises((ValueError, TypeError)):
+            bc.tensor_terms(a, b, i0, ids, ids, tab)
+    assert bc.counters()["tensor"] == 0

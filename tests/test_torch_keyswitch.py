@@ -7,7 +7,8 @@ Recipes: alpha = 1 is tests/test_mkckks.py's (logN 10, P of 2 limbs),
 alpha = 2 is tests/test_alpha2.py's (logN 9, P of 4 limbs). Operands:
 k-party running sum x running difference (the bench's distinct
 operands), a square, and two 2-party ciphertexts over disjoint id sets
-(the 4-party union)."""
+(the 4-party union). The tensor terms' plain version against the torch
+chain the port ran before the tensor kernel, bit for bit."""
 
 import functools
 
@@ -22,6 +23,9 @@ from mkhe_tpu import mkrlwe as jrlwe
 from mkhe_tpu.mkrlwe import keyswitch as jksw
 from mkhe_tpu_torch import convert
 from mkhe_tpu_torch.mkrlwe import keyswitch as tksw
+from mkhe_tpu_torch.ops import basis_cuda
+from mkhe_tpu_torch.ops.primes import ntt_primes
+from mkhe_tpu_torch.ops.ring import Ring
 
 torch.set_num_threads(1)
 
@@ -222,3 +226,70 @@ def test_u_key_operand(ctx):
                 tksw.mul_and_relin_sum(tp, pairs, keys, level).data)
         np.testing.assert_array_equal(convert.to_numpy(one.data), one_w)
         np.testing.assert_array_equal(convert.to_numpy(two.data), two_w)
+
+
+# -- the tensor terms ---------------------------------------------------------
+
+def _tensor_chain(ring, nt0, nt1, ids0, ids1, ids):
+    """The tensor terms as the port computed them before the tensor kernel:
+    to_mont of both operands' row 0, a mul_mont a product, add_mod."""
+    nt0_0m, nt1_0m = ring.to_mont(nt0[0]), ring.to_mont(nt1[0])
+    out = [ring.mul_mont(nt1[0], nt0_0m)]
+    for pid in ids:
+        acc = None
+        if pid in ids0:
+            acc = ring.mul_mont(nt0[1 + ids0.index(pid)], nt1_0m)
+        if pid in ids1:
+            t = ring.mul_mont(nt1[1 + ids1.index(pid)], nt0_0m)
+            acc = t if acc is None else ring.add(acc, t)
+        out.append(acc)
+    return torch.stack(out)
+
+
+TENSOR_LOGN = 6
+TENSOR_CASES = {
+    # name: (moduli, batch axes, ids0, ids1, square)
+    "ckks_4_parties": (ntt_primes(TENSOR_LOGN, 28.99, 4), (), USERS, USERS,
+                       False),
+    "bfv_ring_r_batched": (ntt_primes(TENSOR_LOGN, 28.9, 3)
+                           + ntt_primes(TENSOR_LOGN, 28.4, 3), (2,), USERS,
+                           USERS, False),
+    "cnn_conv_disjoint": (ntt_primes(TENSOR_LOGN, 28.9, 3), (), USERS[:1],
+                          USERS[1:2], False),
+    "ids0_strict_subset": (ntt_primes(TENSOR_LOGN, 28.9, 3), (), USERS[1:2],
+                           USERS[:3], False),
+    "square": (ntt_primes(TENSOR_LOGN, 28.9, 3), (), USERS[:2], USERS[:2],
+               True),
+    "party_sharded_local_ids": (ntt_primes(TENSOR_LOGN, 28.9, 3), (2,),
+                                (0, 1, 2), (0, 1, 2), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TENSOR_CASES))
+def test_tensor_terms_plain_is_the_chain(name):
+    """basis_cuda.tensor_terms_plain (one product sum and one %) and the
+    wrapper's CPU route equal the to_mont / mul_mont / add_mod chain bit
+    for bit in each caller's shape: 4 parties in both operands, BFV's
+    two-ring R with a batch axis, the CNN conv's disjoint ids, ids0 a
+    strict subset of the union, the square (one tensor for both) and the
+    party-sharded mult's local ids; residues q - 1 in the first columns
+    (the largest sums)."""
+    mods, batch, ids0, ids1, square = TENSOR_CASES[name]
+    ring = Ring.create(mods, TENSOR_LOGN, "cpu")
+    ids = tuple(sorted(set(ids0) | set(ids1)))
+    rng = np.random.default_rng(sorted(TENSOR_CASES).index(name))
+    q = np.array(mods, np.int64)[:, None]
+
+    def operand(k):
+        x = rng.integers(0, 1 << 40, (1 + k, *batch, len(mods), ring.n)) % q
+        x[..., :3] = q - 1
+        return torch.from_numpy(x)
+
+    nt0 = operand(len(ids0))
+    nt1 = nt0 if square else operand(len(ids1))
+    want = _tensor_chain(ring, nt0, nt1, ids0, ids1, ids)
+    t = basis_cuda.limb_tables(ring.moduli, ring.device)
+    for got in (basis_cuda.tensor_terms_plain(nt0, nt1, ids0, ids1, ids, t),
+                basis_cuda.tensor_terms(nt0, nt1, ids0, ids1, ids, t)):
+        assert got.shape == (1 + len(ids), *batch, len(mods), ring.n)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
