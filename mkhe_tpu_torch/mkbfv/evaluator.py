@@ -7,10 +7,9 @@ core."""
 
 from __future__ import annotations
 
-import torch
-
 from ..mkrlwe import keyswitch as ksw
-from ..mkrlwe.elements import Ciphertext, _union_combine, union_ids
+from ..mkrlwe.elements import (Ciphertext, _union_combine, split_batch,
+                               stack_batch, union_ids)
 from ..utils.profiling import span
 from .params import Parameters
 from .keys import RelinearizationKeySet
@@ -57,17 +56,10 @@ class Evaluator:
         mul_relin_new on its pair."""
         with span("bfv.mul_relin"):
             cts0, cts1 = list(cts0), list(cts1)
-            if len(cts0) != len(cts1) or not cts0:
-                raise ValueError("need equal-length non-empty batches")
-            for lst in (cts0, cts1):
-                if any(c.ids != lst[0].ids for c in lst):
-                    raise ValueError("batch must share the id tuple")
-            out = self._mul_relin(
-                cts0[0].ids, cts1[0].ids,
-                torch.stack([c.data for c in cts0], dim=1),
-                torch.stack([c.data for c in cts1], dim=1), rlk_set)
-            return [Ciphertext(ids=out.ids, data=d)
-                    for d in out.data.movedim(1, 0).contiguous()]
+            data0, data1 = stack_batch(cts0, cts1)
+            out = self._mul_relin(cts0[0].ids, cts1[0].ids, data0, data1,
+                                  rlk_set)
+            return split_batch(out.data, out.ids)
 
     def hoisted_form(self, ct: Ciphertext) -> bfv_ksw.HoistedCiphertext:
         """Both double-basis forms of ct and their decompositions, so that

@@ -19,7 +19,8 @@ import torch
 
 from .. import mkrlwe
 from ..mkrlwe import keyswitch as ksw
-from ..mkrlwe.elements import Ciphertext as RCt, _union_combine, union_ids
+from ..mkrlwe.elements import (Ciphertext as RCt, _union_combine,
+                               split_batch, stack_batch, union_ids)
 from ..ops import basis
 from ..ops import modmath as mm
 from ..utils.profiling import span
@@ -181,21 +182,14 @@ class Evaluator:
         bit-identical to mul_relin_new on its pair."""
         with span("ckks.mul_relin"):
             cts0, cts1 = list(cts0), list(cts1)
-            if len(cts0) != len(cts1) or not cts0:
-                raise ValueError("need equal-length non-empty batches")
-            for lst in (cts0, cts1):
-                if any(c.ids != lst[0].ids or c.level != lst[0].level
-                       or c.scale != lst[0].scale for c in lst):
-                    raise ValueError("batch must share (ids, level, scale); "
-                                     "split the batch")
-            level = min(cts0[0].level, cts1[0].level)
+            data0, data1 = stack_batch(
+                cts0, cts1, lambda c: (c.ids, c.level, c.scale),
+                "batch must share (ids, level, scale); split the batch")
+            level = data0.shape[-2] - 1
             ids = union_ids(cts0[0].ids, cts1[0].ids)
             # the rescale amount, once for the batch (one scale)
             scale, nb = self._rescale_count(cts0[0].scale * cts1[0].scale,
                                             level)
-            data0, data1 = (torch.stack([c.ct.data[..., :level + 1, :]
-                                         for c in cts], dim=1)
-                            for cts in (cts0, cts1))
             rp = self.params.rlwe
             out = ksw.mul_and_relin(rp, RCt(ids=cts0[0].ids, data=data0),
                                     RCt(ids=cts1[0].ids, data=data1),
@@ -204,8 +198,8 @@ class Evaluator:
                 with span("ckks.rescale"):
                     out = basis.div_round_by_last_moduli(
                         out, rp.ring_q_at(level), nb)
-            return [Ciphertext(ct=RCt(ids=ids, data=d), scale=scale)
-                    for d in out.movedim(1, 0).contiguous()]
+            return [Ciphertext(ct=ct, scale=scale)
+                    for ct in split_batch(out, ids)]
 
     def mul_relin_sum_new(self, pairs, rlk_set) -> Ciphertext:
         """Inner product sum_i a_i * b_i with lazy relinearization

@@ -2,7 +2,8 @@
 
 from .params import Parameters, new_parameters, add_crs
 from .elements import (Ciphertext, HoistedCiphertext, new_ciphertext,
-                       pad_ciphertext, drop_level, union_ids)
+                       pad_ciphertext, drop_level, union_ids,
+                       batch_counters, reset_batch_counters)
 from .keys import (SecretKey, PublicKey, SwitchingKey, RelinearizationKey,
                    RotationKey, ConjugationKey, SecretKeySet, PublicKeySet,
                    RelinearizationKeySet, RotationKeySet, ConjugationKeySet)
@@ -15,7 +16,7 @@ from . import keyswitch
 __all__ = [
     "Parameters", "new_parameters", "add_crs",
     "Ciphertext", "HoistedCiphertext", "new_ciphertext", "pad_ciphertext",
-    "drop_level", "union_ids",
+    "drop_level", "union_ids", "batch_counters", "reset_batch_counters",
     "SecretKey", "PublicKey", "SwitchingKey", "RelinearizationKey",
     "RotationKey", "ConjugationKey", "SecretKeySet", "PublicKeySet",
     "RelinearizationKeySet", "RotationKeySet", "ConjugationKeySet",

@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class Ciphertext:
@@ -58,6 +60,52 @@ def _union_combine(ring, ct0: Ciphertext, ct1: Ciphertext, op, lone_b
         else:
             out.append(op(ring, ct0.party(pid), ct1.party(pid)))
     return Ciphertext(ids=ids, data=torch.stack(out))
+
+
+_batches = {"calls": 0, "pairs": 0}
+
+
+def stack_batch(cts0, cts1, shared=lambda c: c.ids,
+                message="batch must share the id tuple"):
+    """The two sides of a batched mult of B pairs, checked and stacked
+    behind the party axis, (k+1, B, L, N) each, so that every launch of
+    the mult covers B times the rows of one. A side is a list of
+    Ciphertexts, or of a scheme's ciphertexts that hold one as `.ct`
+    (CKKS); the sides are equally long and not empty, and the members of
+    each agree on `shared(c)` (else ValueError(message)). L is the lower
+    side's limb count: the other side is dropped to that level, as a
+    single mult does. Counts the call and its pairs (batch_counters)."""
+    if len(cts0) != len(cts1) or not cts0:
+        raise ValueError("need equal-length non-empty batches")
+    for side in (cts0, cts1):
+        if any(shared(c) != shared(side[0]) for c in side):
+            raise ValueError(message)
+    data = [[getattr(c, "ct", c).data for c in side] for side in (cts0, cts1)]
+    limbs = min(side[0].shape[-2] for side in data)
+    with span("batch.stack"):
+        out = tuple(torch.stack([d[..., :limbs, :] for d in side], dim=1)
+                    for side in data)
+    _batches["calls"] += 1
+    _batches["pairs"] += len(cts0)
+    return out
+
+
+def split_batch(data: torch.Tensor, ids: Tuple[str, ...]) -> list:
+    """The inverse of stack_batch: the B Ciphertexts over ids of a batched
+    result (k+1, B, L, N), each a contiguous (k+1, L, N) tensor."""
+    with span("batch.split"):
+        return [Ciphertext(ids=ids, data=d)
+                for d in data.movedim(1, 0).contiguous()]
+
+
+def batch_counters() -> dict:
+    """Batched mults (`calls`) and their pairs (`pairs`) stacked since the
+    last reset_batch_counters()."""
+    return dict(_batches)
+
+
+def reset_batch_counters() -> None:
+    _batches.update(calls=0, pairs=0)
 
 
 def pad_ciphertext(ct: Ciphertext, ids: Tuple[str, ...]) -> Ciphertext:

@@ -1,6 +1,6 @@
 """Where the time of one multi-party mult + relin + rescale goes.
 
-    python -m mkhe_tpu_torch.profile_mult [--trace PATH] [--bfv]
+    python -m mkhe_tpu_torch.profile_mult [--trace PATH] [--bfv | --batch B]
 
 Builds PN15QP880 keys for 4 parties from a seed on the first CUDA device
 and the bench operands (ct0 the running sum, ct1 the running difference of fresh
@@ -31,6 +31,12 @@ encryptions, as bench.py does), then prints:
 same operands, messages uniform mod t): its latency and the same trace,
 spans on, with the BFV steps (bfv.lift, bfv.rescale_qr, bfv.tensor,
 bfv.quantize) beside the key switch's, and its launches per mult.
+
+--batch B profiles Evaluator.mul_relin_batched_new on B distinct pairs
+of the same operands instead: its latency a call and a pair, launches a
+call beside mkrlwe.batch_counters() (one call of B pairs), and the same
+trace, spans on, with the batching helper's batch.stack and batch.split
+beside the key switch's steps.
 
 `profile` and `trace` take any parameters and device, so the same code
 runs at a small size on the CPU (host-clock times, no device rows).
@@ -64,6 +70,14 @@ REQUEST = "profile.request"   # the span around each traced call
 
 def setup(params, parties: int, seed: int = SEED):
     """Keys for `parties` users and the bench operands ct0, ct1."""
+    ev, cts0, cts1, rlk = setup_batch(params, parties, 1, seed)
+    return ev, cts0[0], cts1[0], rlk
+
+
+def setup_batch(params, parties: int, pairs: int, seed: int = SEED):
+    """Keys for `parties` users and `pairs` distinct pairs of bench
+    operands, each as setup's: the two sides cts0, cts1 of a batched
+    mult."""
     users = tuple(f"user{i}" for i in range(parties))
     kgen = mkrlwe.KeyGenerator(params.rlwe, seed=seed)
     rlk, pks = mkrlwe.RelinearizationKeySet(), {}
@@ -73,13 +87,17 @@ def setup(params, parties: int, seed: int = SEED):
     enc = mkckks.Encryptor(params, seed=seed + 1)
     ev = mkckks.Evaluator(params)
     rng = np.random.default_rng(seed + 2)
-    cts = [enc.encrypt_msg(mkckks.Message(
-        value=rng.uniform(0.1 / parties, 1.0 / parties, params.slots)
-        + 0j), pks[uid]) for uid in users]
-    ct0 = ct1 = cts[0]
-    for c in cts[1:]:
-        ct0, ct1 = ev.add_new(ct0, c), ev.sub_new(ct1, c)
-    return ev, ct0, ct1, rlk
+    cts0, cts1 = [], []
+    for _ in range(pairs):
+        cts = [enc.encrypt_msg(mkckks.Message(
+            value=rng.uniform(0.1 / parties, 1.0 / parties, params.slots)
+            + 0j), pks[uid]) for uid in users]
+        ct0 = ct1 = cts[0]
+        for c in cts[1:]:
+            ct0, ct1 = ev.add_new(ct0, c), ev.sub_new(ct1, c)
+        cts0.append(ct0)
+        cts1.append(ct1)
+    return ev, cts0, cts1, rlk
 
 
 def setup_bfv(params, parties: int, seed: int = SEED):
@@ -363,8 +381,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the traced mults here")
-    ap.add_argument("--bfv", action="store_true",
-                    help="profile the MKBFV mult + relin instead")
+    how = ap.add_mutually_exclusive_group()
+    how.add_argument("--bfv", action="store_true",
+                     help="profile the MKBFV mult + relin instead")
+    how.add_argument("--batch", type=int, default=0, metavar="B",
+                     help="profile the batched mult of B pairs instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
@@ -389,6 +410,27 @@ def main(argv=None) -> None:
         print_trace(trace(mult, TRACE_CALLS, dev, args.trace), "bfv mult")
         return
     params = mkckks.PN15QP880("cuda")
+    if args.batch:
+        ev, cts0, cts1, rlk = setup_batch(params, PARTIES, args.batch)
+        dev = params.rlwe.device
+
+        def batched():
+            return ev.mul_relin_batched_new(cts0, cts1, rlk)
+
+        ms = median_ms(batched, REPS, dev)
+        host = host_ms(batched, REPS, dev)
+        n = launches(batched)
+        mkrlwe.reset_batch_counters()
+        batched()
+        print(f"PN15QP880, {PARTIES} parties, batch of {args.batch}, torch "
+              f"{torch.__version__}: batched mult+relin+rescale {ms:.3f} ms "
+              f"a call, {ms / args.batch:.3f} ms a pair (CUDA events, median"
+              f" of {REPS}), {host:.3f} ms a call (host clock + synchronize);"
+              f" launches a call {n}; batch counters a call "
+              f"{mkrlwe.batch_counters()}", flush=True)
+        print_trace(trace(batched, TRACE_CALLS, dev, args.trace),
+                    "batched mult")
+        return
     ev, ct0, ct1, rlk = setup(params, PARTIES)
     res = profile(params, ev, ct0, ct1, rlk, REPS)
     print(f"PN15QP880, {PARTIES} parties, torch {torch.__version__}: "
