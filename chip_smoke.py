@@ -52,7 +52,8 @@ Phases, one line each, then two JSON lines:
               mul_accum) launch counters must grow during the phase, the
               rescale kernel's and the tensor kernel's by one a request,
               and mod_up's stay at 0 (every decomposition is the fused
-              one);
+              one), and so do the basis kernel's wide launches
+              (basis_wide: no digit wider than 8 limbs);
   5. bfv      the MKBFV path with the split NTT on (config.ntt_mxu_tail):
               PN15QP880, 4 parties, keys from the port's seeds on the card;
               two 4-party requests ((user0 + user1) x (user2 + user3))
@@ -61,7 +62,9 @@ Phases, one line each, then two JSON lines:
               each exactly equal to the plaintext product mod t; the
               split's launch counters (the fused forward, the fused
               inverse) and the key-switching kernels' must grow, the
-              tensor kernel's by one a request, and the
+              tensor kernel's by one a request, the basis kernel's wide
+              launches (basis_wide: the 28 -> 28 conversions) by four a
+              request, and the
               full kernels', the head's, the tail's, the DIT-alone
               mode's and the fused decomposition's stay at 0 (with the
               split on, a decomposition is mod_up, then the split
@@ -85,7 +88,8 @@ Phases, one line each, then two JSON lines:
               single ones bit for bit, and a conjugation that decrypts to
               the conjugate; the key-switched rotations of the requests
               are counted (profile_cnn.count_rotations); mod_up's
-              launches stay at 0 (every decomposition fused); then one more
+              launches stay at 0 (every decomposition fused), and so do
+              the basis kernel's wide ones; then one more
               inference traced with the spans on (profile_cnn.op_profile):
               the device ms under the layers' spans cnn.conv, cnn.fc1 and
               cnn.fc2.
@@ -159,8 +163,12 @@ Phases, one line each, then two JSON lines:
               shapes of one 4-party PN15QP880 mult at level 27: mod_up as
               the digits of both operands ((8, 28) -> (8, 14, 32) x 2^15)
               and of t ((4, 28) -> (4, 14, 32)), and BFV's Q -> QMul
-              (28 -> 28); mul_accum as the x, y aggregation, Ext and the
-              56-term v-sum; mod_down of zt (8 x 32) and vz (5 x 32);
+              and QMul -> Q (28 -> 28); mul_accum as the x, y aggregation,
+              Ext and the 56-term v-sum; mod_down of zt (8 x 32) and vz (5
+              x 32) and BFV's ModDown by QMul ((5, 28 + 28) -> (5, 28));
+              the BFV rows in the basis kernel's wide body (one basis_wide
+              launch each, none elsewhere), with basis_kernel<32, *>'s
+              ptxas lines;
               every digit with coefficients where the float32 v differs
               from the exact floor (the seed's, planted where it gives
               none); the rescale (nb 2) of the mult's output (5, 28) x
@@ -622,11 +630,12 @@ def phase_mult(params) -> dict:
     ms2, err2 = request(users[:2])
     launches = _counters()
     if (min(launches[k] for k in MAIN_COUNTS) < 1 or launches["rescale"] != 4
-            or launches["tensor"] != 4 or launches["mod_up"]):
+            or launches["tensor"] != 4 or launches["mod_up"]
+            or launches["basis_wide"]):
         raise AssertionError(f"the main path missed a kernel, ran the "
                              f"rescale or the tensor terms other than once "
-                             f"a request or decomposed in two kernels: "
-                             f"{launches}")
+                             f"a request, decomposed in two kernels or ran "
+                             f"a wide basis conversion: {launches}")
     ms4 = [ms for ms, _ in runs4]
     print(f"[4 mult] PN15QP880 logN {params.logn} L {params.max_level + 1} "
           f"+ {params.rlwe.pcount} P, alpha {params.rlwe.alpha}; keygen "
@@ -716,11 +725,13 @@ def phase_bfv(params) -> dict:
         unsplit = ("ntt_tail", "ntt_inv_tailed", "ntt_fwd_head", "ntt_fwd",
                    "ntt_inv", "decompose_ntt")
         if (min(launches[k] for k in split + KS_KERNELS) < 1
-                or launches["tensor"] != 3
+                or launches["tensor"] != 3 or launches["basis_wide"] != 12
                 or any(launches[k] for k in unsplit)):
             raise AssertionError(f"the BFV path did not run the fused split "
                                  f"kernels alone or ran the tensor terms "
-                                 f"other than once a request: {launches}")
+                                 f"other than once and the wide basis "
+                                 f"conversions other than four times a "
+                                 f"request: {launches}")
         # the last 4-party mult again, in turns on, off, off, on
         turns = {True: [ms_on], False: []}
         for on in (False, False, True):
@@ -741,7 +752,8 @@ def phase_bfv(params) -> dict:
           f" 2-party {ms2:.3f}; last 4-party mult again, bit-identical, ms "
           f"split on {[round(m, 3) for m in turns[True]]} off "
           f"{[round(m, 3) for m in turns[False]]}; launches "
-          f"{ {k: launches[k] for k in split + KS_KERNELS + ('tensor',)} }"
+          f"{ {k: launches[k] for k in split + KS_KERNELS
+               + ('tensor', 'basis_wide')} }"
           f"; peak mem "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     return launches
@@ -777,10 +789,12 @@ def phase_cnn(params) -> dict:
     # the tensor terms: sq1, sq2, fc2's mult and the pairs of the conv's
     # (4) and fc1's (n_diag) lazy sums, three inferences
     if (min(launches[k] for k in MAIN_COUNTS) < 1 or launches["mod_up"]
-            or launches["tensor"] != 3 * (3 + 4 + lo.n_diag)):
+            or launches["tensor"] != 3 * (3 + 4 + lo.n_diag)
+            or launches["basis_wide"]):
         raise AssertionError(f"the CNN missed a kernel, decomposed in two "
-                             f"kernels or ran the tensor terms other than "
-                             f"once a mult or pair: {launches}")
+                             f"kernels, ran the tensor terms other than "
+                             f"once a mult or pair or a wide basis "
+                             f"conversion: {launches}")
     # fc1's batched hoisted rotation against single ones, and conjugation
     _, _, img, ct = runs[-1]
     h = ev.hoisted_form(ct)
@@ -1613,7 +1627,8 @@ def phase_decompose(params, params_bfv, params_cnn, ptxas: list) -> dict:
 def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
     """The key-switching kernels (csrc/keyswitch.cu) against their plain
     versions on the card, bit for bit, at the full shapes of one 4-party
-    PN15QP880 mult at level 27 and BFV's 28 -> 28 mod_up, with the float32
+    PN15QP880 mult at level 27 and BFV's 28 -> 28 conversions (Q -> QMul,
+    QMul -> Q, the ModDown by QMul: the wide body), with the float32
     v boundary: the coefficients where the float32 v differs from the
     exact floor (basis_cuda.v_floors), planted where the seed gives none;
     the rescale of the mult's output and of a PN14QP433_CNN ciphertext;
@@ -1621,7 +1636,7 @@ def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
     of the CNN's conv (disjoint ids) and square, with tensor_kernel's
     ptxas line. Kernel ms (single launches; mean of 10; the rescale's and
     the tensor terms' CUDA-graph replay), plain ms, bound, the largest
-    |kernel - plain|.
+    |kernel - plain| and the mismatches of each row.
     Returns the {"kernels"} line's stats (mod_up: the digits of both
     operands; mod_down: zt; mul_accum: the v-sum; rescale: the mult's
     output; tensor: the CKKS mult's)."""
@@ -1633,6 +1648,7 @@ def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
     ring_q, ring_qp = rp.ring_q_at(level), rp.ring_qp_at(level)
     q, qp, pm = ring_q.moduli, ring_qp.moduli, rp.ring_p.moduli
     qmul, dev, n = params_bfv.qmul_moduli, torch.device("cuda"), rp.n
+    qb = params_bfv.ring_q.moduli   # BFV's Q (shares primes with CKKS's)
     bc = basis_cuda
     qq, qpq = ring_q.q[:, None], ring_qp.q[:, None]
     boundary = {}
@@ -1662,12 +1678,15 @@ def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
         return x
 
     dig2 = bc.digit_tables(q, qp, rp.alpha, dev)
-    up_bfv = bc.mod_up_tables(q, qmul, dev)
+    up_bfv = bc.mod_up_tables(qb, qmul, dev)
+    back_bfv = bc.mod_up_tables(qmul, qb, dev)
+    down_bfv = bc.mod_down_tables(qb, qmul, dev)
     down = bc.mod_down_tables(q, pm, dev)
     lt = bc.limb_tables(qp, dev)
     both = coeffs((8, 28, n), q, rp.alpha)
     t_in = coeffs((4, 28, n), q, rp.alpha)
-    ct_bfv = coeffs((5, 28, n), q, 28)
+    ct_bfv = coeffs((5, 28, n), qb, 28)
+    w_bfv = coeffs((5, 28, n), qmul, 28)
     dec = _rand(gen, (4, 14, 32, n), qpq)
     keys = _rand(gen, (4, 14, 32, n), qpq)
     x_agg = _rand(gen, (14, 32, n), qpq)
@@ -1697,6 +1716,8 @@ def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
          bc.decompose_plain, (t_in, dig2), (t_in,), 2),
         ("mod_up", "BFV Q -> QMul (5, 28) -> (5, 28)", bc.mod_up,
          bc.mod_up_plain, (ct_bfv, up_bfv), (ct_bfv,), 28),
+        ("mod_up", "BFV QMul -> Q (5, 28) -> (5, 28)", bc.mod_up,
+         bc.mod_up_plain, (w_bfv, back_bfv), (w_bfv,), 28),
         ("mul_accum", "x, y aggregation (4, 14, 32) . (4, 14, 32)",
          bc.mul_accum, bc.mul_accum_plain, (dec, keys, 1, lt),
          (dec, keys), 4),
@@ -1711,6 +1732,9 @@ def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
          (zt[:, :28], zt[:, 28:], down), (zt[:, :28], zt[:, 28:]), 4),
         ("mod_down", "vz (5, 32) -> (5, 28)", bc.mod_down, bc.mod_down_plain,
          (vz[:, :28], vz[:, 28:], down), (vz[:, :28], vz[:, 28:]), 4),
+        ("mod_down", "BFV ModDown by QMul (5, 28 + 28) -> (5, 28)",
+         bc.mod_down, bc.mod_down_plain, (ct_bfv, w_bfv, down_bfv),
+         (ct_bfv, w_bfv), 28),
         ("rescale", "the mult's output (5, 28) -> (5, 26), nb 2",
          bc.rescale, bc.rescale_plain, (ct_out, ring_q, 2), (ct_out,), 2),
         ("rescale", "CNN (3, 14) -> (3, 12) x 2^14, nb 2", bc.rescale,
@@ -1734,13 +1758,15 @@ def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
         bc.reset_counters()
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
-        if bc.counters()[name] != 1:
+        wide = name in ("mod_up", "mod_down") and width > bc.WIDE_ALPHA
+        if bc.counters()[name] != 1 or bc.counters()["basis_wide"] != wide:
             raise AssertionError(f"{label}: {bc.counters()}")
         mism += int((got != want).sum())
         err[name] = max(err.get(name, 0), int((got - want).abs().max()))
         b_ms, b_by = keyswitch_bound(name, ins, got, width)
         rows.append(dict(
-            name=name, label=label, ms=cuda_ms(lambda: kern(*args), 20, 1),
+            name=name, label=label, mism=int((got != want).sum()),
+            ms=cuda_ms(lambda: kern(*args), 20, 1),
             ms_mean10=cuda_ms(lambda: kern(*args), 20),
             plain_ms=cuda_ms(lambda: plain(*args), 3, 1), bound_ms=b_ms,
             bound_by=b_by, graph_ms=graph_ms(lambda: kern(*args), 20)
@@ -1754,9 +1780,12 @@ def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
           f"(canonical inputs, the float32"
           f" v boundary in every digit: {boundary} as (seed's, checked) "
           f"coefficients where float32 v != the exact floor); tensor_kernel"
-          f" ptxas: {_ptxas_of(ptxas, 'tensor_kernel')}; ms, mean of "
-          f"10, plain ms, bound ms and share of it: "
-          + "; ".join(f"{r['name']} {r['label']}: {r['ms']:.4f}, "
+          f" ptxas: {_ptxas_of(ptxas, 'tensor_kernel')}; the wide body "
+          f"(BFV rows) ptxas: {_ptxas_of(ptxas, 'basis_kernel<32,0>')}; "
+          f"{_ptxas_of(ptxas, 'basis_kernel<32,1>')}; mismatches, ms, "
+          f"mean of 10, plain ms, bound ms and share of it: "
+          + "; ".join(f"{r['name']} {r['label']}: {r['mism']}, "
+                      f"{r['ms']:.4f}, "
                       f"{r['ms_mean10']:.4f}, plain {r['plain_ms']:.4f}, "
                       f"bound {r['bound_ms']:.4f} ({r['bound_by']}, "
                       f"{r['bound_ms'] / r['ms_mean10']:.1%})"
@@ -1765,8 +1794,11 @@ def phase_keyswitch(params, params_bfv, params_cnn, ptxas: list) -> dict:
                          if r['graph_ms'] else "")
                       for r in rows)
           + f"; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
-    line = {"mod_up": rows[0], "mul_accum": rows[5], "mod_down": rows[6],
-            "rescale": rows[8], "tensor": rows[10]}
+    first = {}
+    for r in rows:
+        first.setdefault(r["name"], r)
+    line = {**first, "mul_accum": next(r for r in rows
+                                       if r["label"].startswith("v-sum"))}
     return {name: dict(max_abs_err=err[name],
                        **{k: r[k] for k in ("ms", "ms_mean10", "plain_ms",
                                              "bound_ms", "bound_by")})

@@ -41,7 +41,9 @@
 // broadcasts: every lane of a warp reads the same word), and, in the
 // contraction, the output polynomials on the fastest grid axis so the
 // blocks that share a broadcast operand (a key over the parties) run
-// together and find it in L2.
+// together and find it in L2. A digit of more than 8 limbs (BFV's 28)
+// would make that thread a long chain of products: basis_wide spreads its
+// output limbs over threads instead.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -110,14 +112,156 @@ struct BasisArgs {
   int ls, alpha, beta, ld, n, nblk;
 };
 
+// The wide digit: more than 8 limbs (kMax >= kWideMin; BFV's 28-limb
+// Q <-> QMul conversions and its ModDown by QMul). One thread a coefficient
+// would give only P N threads, each a chain of Ls x Ld dependent wide
+// products over as many shared loads: latency, not bytes, would bound it.
+// So a block owns kWideCoeffs coefficients of one polynomial and digit, in
+// three phases split by barriers:
+//   1. y_i = x_i (B/b_i)^-1 mod b_i for every (limb i, coefficient), spread
+//      over the block's threads (a warp reads 32 neighbouring coefficients
+//      of one limb), into ys[i][c] in shared memory;
+//   2. v = floor(sum_i fl32(y_i) / b_i), one thread a coefficient, added
+//      left to right (__fmul_rn / __fadd_rn, as the narrow body), into vs;
+//   3. a warp per (group g of kWideGroup output limbs, 32 coefficients):
+//      kWideGroup independent u64 sums over i of y_i (a conflict-free
+//      load, lane = coefficient) times qhat[i][g's limbs] (two 16-byte
+//      broadcast loads: qh rows hold each group in kWideStride words), then
+//      mont_wide, the vq correction and, with kDown, the (xq - conv) P^-1
+//      epilogue, stored int64 (32 neighbouring coefficients a store).
+// Sums of at most 64 products of residues below 2^29 stay below 2^64.
+constexpr int kWideMin = 16;     // kMax of the wide body
+constexpr int kWideGroup = 7;    // output limbs a thread (BFV's 28 = 4 x 7)
+constexpr int kWideStride = 8;   // words a group takes in a qh row
+constexpr int kWideCoeffs = 64;  // coefficients a block
+
+// Shared words of the wide body: dst (4 ld), src (4 alpha), qh (alpha rows
+// of groups x kWideStride), vq (ld (alpha + 1)), ys (alpha x kWideCoeffs),
+// vs (kWideCoeffs).
+__host__ __device__ inline int wide_groups(int ld) {
+  return (ld + kWideGroup - 1) / kWideGroup;
+}
+
+__host__ __device__ inline int wide_words(int alpha, int ld) {
+  return 4 * ld + 4 * alpha + alpha * wide_groups(ld) * kWideStride +
+         ld * (alpha + 1) + (alpha + 1) * kWideCoeffs;
+}
+
+template <int kMax, bool kDown>
+__device__ __forceinline__ void basis_wide(const BasisArgs& a, uint32_t* sm) {
+  const int k = blockIdx.y;
+  const int64_t p = blockIdx.x / a.nblk;
+  const int c0 = (blockIdx.x % a.nblk) * kWideCoeffs;
+  const int ld = a.ld, alpha = a.alpha;
+  const int lo = k * alpha;
+  const int lsd = min(alpha, a.ls - lo);
+  const int gs = wide_groups(ld) * kWideStride;
+  uint32_t* dst = sm;
+  uint32_t* src = dst + 4 * ld;
+  uint32_t* qh = src + 4 * alpha;
+  uint32_t* vq = qh + alpha * gs;
+  uint32_t* ys = vq + ld * (alpha + 1);
+  int* vs = reinterpret_cast<int*>(ys + alpha * kWideCoeffs);
+  const uint32_t* tab = a.table + 4 * ld + k * (4 * alpha + alpha * ld +
+                                                ld * (alpha + 1));
+  for (int w = threadIdx.x; w < 4 * ld + 4 * alpha; w += kThreads)
+    dst[w] = w < 4 * ld ? a.table[w] : tab[w - 4 * ld];
+  for (int w = threadIdx.x; w < alpha * gs; w += kThreads) {
+    const int i = w / gs, t = w % kWideStride;
+    const int j = (w % gs) / kWideStride * kWideGroup + t;
+    qh[w] = t < kWideGroup && j < ld ? tab[4 * alpha + i * ld + j] : 0;
+  }
+  for (int w = threadIdx.x; w < ld * (alpha + 1); w += kThreads)
+    vq[w] = tab[4 * alpha + alpha * ld + w];
+
+  // 1. the y_i: every load of the thread in flight before the first REDC
+  constexpr int kRounds = kMax * kWideCoeffs / kThreads;
+  uint32_t xv[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int w = r * kThreads + threadIdx.x;
+    const int i = w / kWideCoeffs, c = c0 + w % kWideCoeffs;
+    xv[r] = i < lsd && c < a.n ? static_cast<uint32_t>(
+        a.x[p * a.sxp + (lo + i) * a.sxl + c]) : 0;
+  }
+  __syncthreads();   // the tables
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int w = r * kThreads + threadIdx.x;
+    const int i = w / kWideCoeffs;
+    if (i < lsd)
+      ys[w] = redc(static_cast<uint64_t>(xv[r]) * src[4 * i + 2], src[4 * i],
+                   src[4 * i + 1]);
+  }
+  __syncthreads();
+
+  // 2. v, left to right
+  if (threadIdx.x < kWideCoeffs) {
+    float vf = 0.0f;
+    for (int i = 0; i < lsd; ++i)
+      vf = __fadd_rn(vf, __fmul_rn(
+          __uint2float_rn(ys[i * kWideCoeffs + threadIdx.x]),
+          __uint_as_float(src[4 * i + 3])));
+    vs[threadIdx.x] = min(max(static_cast<int>(floorf(vf)), 0), lsd);
+  }
+  __syncthreads();
+
+  // 3. a warp per (group, 32 coefficients)
+  constexpr int kChunks = kWideCoeffs / 32;
+  const int lane = threadIdx.x % 32;
+  for (int item = threadIdx.x / 32; item < wide_groups(ld) * kChunks;
+       item += kThreads / 32) {
+    const int g = item / kChunks;
+    const int cc = item % kChunks * 32 + lane;
+    const uint32_t* row = qh + g * kWideStride;
+    uint64_t acc[kWideGroup] = {};
+#pragma unroll 4
+    for (int i = 0; i < lsd; ++i) {
+      const uint32_t y = ys[i * kWideCoeffs + cc];
+      const uint4 q0 = *reinterpret_cast<const uint4*>(row + i * gs);
+      const uint4 q1 = *reinterpret_cast<const uint4*>(row + i * gs + 4);
+      const uint32_t qs[kWideGroup] = {q0.x, q0.y, q0.z, q0.w,
+                                       q1.x, q1.y, q1.z};
+#pragma unroll
+      for (int t = 0; t < kWideGroup; ++t)
+        acc[t] += static_cast<uint64_t>(y) * qs[t];
+    }
+    const int c = c0 + cc;
+    if (c >= a.n) continue;
+    const int v = vs[cc];
+    int64_t* out = a.out + ((p * a.beta + k) * ld) * a.n + c;
+#pragma unroll
+    for (int t = 0; t < kWideGroup; ++t) {
+      const int j = g * kWideGroup + t;
+      if (j >= ld) break;
+      const uint32_t q = dst[4 * j], qn = dst[4 * j + 1];
+      const uint32_t bar = dst[4 * j + 2];
+      uint32_t r = mont_wide(acc[t], q, qn, bar);
+      r = csub(r + q - vq[j * (alpha + 1) + v], q);
+      if (kDown) {
+        const uint32_t xj = barrett(
+            static_cast<uint32_t>(a.xq[p * a.sqp + j * a.sql + c]), q, bar);
+        r = redc(static_cast<uint64_t>(csub(xj + q - r, q)) * dst[4 * j + 3],
+                 q, qn);
+      }
+      out[static_cast<int64_t>(j) * a.n] = r;
+    }
+  }
+}
+
 // One thread per (polynomial p, digit k, coefficient c): y_i = x_i (B/b_i)^-1
 // mod b_i over the digit's limbs, v = floor(sum fl32(y_i) / b_i) in [0, lsd],
 // then for each output limb j: (sum_i y_i (B/b_i mod d_j) - v B) mod d_j;
 // with kDown, out_j = (xq_j - that) P^-1 mod d_j. kMax >= the digit width.
+// From kMax = kWideMin on, the wide body instead (basis_wide).
 template <int kMax, bool kDown>
 __global__ void __launch_bounds__(kThreads)
 basis_kernel(const BasisArgs a) {
   extern __shared__ uint32_t sm[];
+  if constexpr (kMax >= kWideMin) {
+    basis_wide<kMax, kDown>(a, sm);
+    return;
+  }
   const int k = blockIdx.y;
   const int64_t p = blockIdx.x / a.nblk;
   const int c = (blockIdx.x % a.nblk) * kThreads + threadIdx.x;
@@ -172,6 +316,24 @@ basis_kernel(const BasisArgs a) {
 
 template <int kMax, bool kDown>
 int launch_basis(const BasisArgs& a, int64_t n_polys, void* stream) {
+  if constexpr (kMax >= kWideMin) {   // kWideCoeffs coefficients a block
+    BasisArgs w = a;
+    w.nblk = (a.n + kWideCoeffs - 1) / kWideCoeffs;
+    if (n_polys * w.nblk > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = static_cast<int>(sizeof(uint32_t)) *
+                     wide_words(a.alpha, a.ld);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          basis_kernel<kMax, kDown>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const dim3 grid(static_cast<unsigned>(n_polys * w.nblk), a.beta);
+    basis_kernel<kMax, kDown><<<grid, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(w);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int smem = static_cast<int>(sizeof(uint32_t)) *
                    (4 * a.ld + 4 * a.alpha + a.alpha * a.ld +
                     a.ld * (a.alpha + 1));

@@ -8,7 +8,10 @@ counterpart):
   mod_up     basis_kernel<.., false>: the exact basis extension of
              mkhe_tpu/ops/basis.py:93-154 (float32 v-correction, every
              Ls), with a digit axis: `decompose` gives all beta digits of
-             decompose_digits (:202-230) in one launch;
+             decompose_digits (:202-230) in one launch; a digit of more
+             than WIDE_ALPHA limbs (BFV's 28) takes the kernel's wide
+             body (a thread per coefficient and group of WIDE_GROUP
+             output limbs; `wide_geometry`);
   mod_down   basis_kernel<.., true>: basis.py:179-199, the P -> Q
              extension and (xq - conv) * P^-1 in one pass;
   mul_accum  mul_accum_kernel: (sum_t a_t * b_t) * 2^-32 mod q over term
@@ -68,6 +71,11 @@ TERM_AXES, OUTER_AXES = 2, 3   # mul_accum_kernel's axes, after merging
 MAX_DROP = 8         # rescale_kernel: the dropped limbs it holds in registers
 MAX_RESCALE_WORDS = 12288   # its table, (2 + 3 nb) L words, in 48 KiB
 MAX_TENSOR_OUT = 32  # tensor_kernel: outputs a launch's row map holds
+WIDE_ALPHA = 8       # basis_kernel: wider digits take its wide body
+WIDE_GROUP = 7       # the wide body: output limbs a thread
+WIDE_STRIDE = 8      # its words a group of a qhat row in shared memory
+WIDE_COEFFS = 64     # its coefficients a block
+THREADS = 256        # basis_kernel's threads a block
 U32 = 1 << 32
 
 # Kernel launches since the last reset_counters(); only a launch of the
@@ -78,24 +86,29 @@ mul_accum_launches = 0
 rescale_launches = 0
 decompose_ntt_launches = 0
 tensor_launches = 0
+basis_wide_launches = 0
 
 
 def reset_counters() -> None:
     global mod_up_launches, mod_down_launches, mul_accum_launches
     global rescale_launches, decompose_ntt_launches, tensor_launches
+    global basis_wide_launches
     mod_up_launches = mod_down_launches = mul_accum_launches = 0
     rescale_launches = decompose_ntt_launches = tensor_launches = 0
+    basis_wide_launches = 0
 
 
 def counters() -> dict:
     """Launches of each kernel since the last reset_counters()
     (`decompose_ntt`: the fused digits; a decomposition that takes the
     composition counts one `mod_up` and one `ntt_fwd` instead; `tensor`:
-    one a mult's tensor terms up to MAX_TENSOR_OUT - 1 parties)."""
+    one a mult's tensor terms up to MAX_TENSOR_OUT - 1 parties;
+    `basis_wide`: the mod_up and mod_down launches that took the basis
+    kernel's wide body, four a BFV mult)."""
     return {"mod_up": mod_up_launches, "mod_down": mod_down_launches,
             "mul_accum": mul_accum_launches, "rescale": rescale_launches,
             "decompose_ntt": decompose_ntt_launches,
-            "tensor": tensor_launches}
+            "tensor": tensor_launches, "basis_wide": basis_wide_launches}
 
 
 @functools.lru_cache(maxsize=1)
@@ -411,6 +424,7 @@ def _on(device):
 def _launch_basis(x3, xq3, pack, alpha: int, beta: int, ld: int):
     """One launch of the basis kernel over x3 (P, Ls, N) (and xq3 (P, ld,
     N) for ModDown): out (P, beta, ld, N)."""
+    global basis_wide_launches
     n_polys, ls, n = x3.shape
     out = torch.empty((n_polys, beta, ld, n), dtype=torch.int64,
                       device=x3.device)
@@ -427,7 +441,37 @@ def _launch_basis(x3, xq3, pack, alpha: int, beta: int, ld: int):
             n, int(down), stream)
     if err != 0:
         raise RuntimeError(f"mkhe_basis launch failed: CUDA error {err}")
+    if alpha > WIDE_ALPHA:
+        basis_wide_launches += 1
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class WideGeometry:
+    """The basis kernel's wide body at digit width alpha and ld output
+    limbs (csrc/keyswitch.cu::basis_wide): `groups` groups of WIDE_GROUP
+    output limbs, a qhat row of `row` words (WIDE_STRIDE a group), and
+    the offsets of its shared arrays in words (dst, src, qh, vq, ys, vs;
+    `words` in all)."""
+    groups: int
+    row: int
+    src: int
+    qh: int
+    vq: int
+    ys: int
+    vs: int
+    words: int
+
+
+def wide_geometry(alpha: int, ld: int) -> WideGeometry:
+    groups = -(-ld // WIDE_GROUP)
+    row = groups * WIDE_STRIDE
+    src = 4 * ld
+    qh = src + 4 * alpha
+    vq = qh + alpha * row
+    ys = vq + ld * (alpha + 1)
+    vs = ys + alpha * WIDE_COEFFS
+    return WideGeometry(groups, row, src, qh, vq, ys, vs, vs + WIDE_COEFFS)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,6 +27,7 @@ logN 8, one torch thread; the kernels themselves run in
 tests/test_torch_cuda.py on a card."""
 
 import dataclasses
+import itertools
 import json
 import re
 from pathlib import Path
@@ -42,6 +43,7 @@ from mkhe_tpu.ops import modmath as jmm
 from mkhe_tpu.ops import ring as jring
 from mkhe_tpu.ops.primes import ntt_primes
 from mkhe_tpu_torch import config
+from mkhe_tpu_torch.mkbfv.params import preset_moduli
 from mkhe_tpu_torch.ops import basis, ntt_cuda
 from mkhe_tpu_torch.ops import basis_cuda as bc
 from mkhe_tpu_torch.ops.ring import Ring
@@ -243,6 +245,208 @@ def test_basis_wrappers_raise():
         bc.pack_table(Q[:2], ((1 << 29) + 11,), 2)
     with pytest.raises(ValueError):
         bc.pack_table(Q[:2], Q * 3, 2)       # more than MAX_LIMBS outputs
+
+
+# -- the wide body (digits of more than WIDE_ALPHA limbs) --------------------
+
+_, PN15_Q, PN15_QMUL, PN15_P = preset_moduli("PN15QP880")
+
+
+class SharedReads:
+    """The shared-memory accesses of an emulated schedule, one warp
+    instruction at a time: a 32-bit access is conflict-free where no two
+    of its lanes reach one bank at different words; a 16-byte load is one
+    address a warp (a broadcast)."""
+
+    def __init__(self):
+        self.words = self.vectors = 0
+        self.conflicts = []
+
+    def word(self, addr, active):
+        for a, m in zip(np.broadcast_to(addr, active.shape).reshape(-1, 32),
+                        active.reshape(-1, 32)):
+            u = np.unique(a[m])
+            if u.size:
+                self.words += 1
+                if np.unique(u % 32).size != u.size:
+                    self.conflicts.append(("word", u))
+
+    def vector(self, addr):
+        u = np.unique(addr)
+        self.vectors += 1
+        if u.size != 1 or u[0] % 4:
+            self.conflicts.append(("16 bytes", u))
+
+
+def _kmax(alpha):
+    return next(m for m in (2, 4, 8, 16, 32, 64) if alpha <= m)
+
+
+def emulate_basis_wide(x3, words, ls, alpha, beta, ld, xq3=None,
+                       reads=None):
+    """basis_kernel's wide body (csrc/keyswitch.cu::basis_wide) on x3 (P,
+    Ls, N) (and xq3 (P, ld, N), ModDown) with the packed words, block by
+    block and phase by phase as the kernel runs them: its shared memory
+    filled from the table (bc.wide_geometry's layout, each group's qhat
+    words at WIDE_STRIDE), y_i spread over the block's threads, v summed
+    left to right in float32 by one thread a coefficient, then each warp's
+    (group, 32 coefficients) with WIDE_GROUP u64 sums. Every shared read
+    goes to `reads` (SharedReads)."""
+    reads = reads if reads is not None else SharedReads()
+    w = words.astype(np.uint64)
+    x3 = x3.numpy().astype(np.uint64) & M32
+    xq = None if xq3 is None else xq3.numpy().astype(np.uint64) & M32
+    n_polys, _, n = x3.shape
+    geo = bc.wide_geometry(alpha, ld)
+    C, T, G = bc.WIDE_COEFFS, bc.THREADS, bc.WIDE_GROUP
+    ds = 4 * alpha + alpha * ld + ld * (alpha + 1)
+    out = np.full((n_polys, beta, ld, n), -1, np.int64)
+    tid = np.arange(T)
+    lane = np.arange(32)
+    for p, k, c0 in itertools.product(range(n_polys), range(beta),
+                                      range(0, n, C)):
+        tab = w[4 * ld + k * ds:4 * ld + (k + 1) * ds]
+        lo, lsd = k * alpha, min(alpha, ls - k * alpha)
+        sm = np.zeros(geo.words, np.uint64)
+        sm[:4 * ld] = w[:4 * ld]
+        sm[geo.src:geo.src + 4 * alpha] = tab[:4 * alpha]
+        q_w = np.arange(alpha * geo.row)
+        i, t = q_w // geo.row, q_w % bc.WIDE_STRIDE
+        j = (q_w % geo.row) // bc.WIDE_STRIDE * G + t
+        keep = (t < G) & (j < ld)
+        sm[geo.qh + q_w[keep]] = tab[4 * alpha + i[keep] * ld + j[keep]]
+        sm[geo.vq:geo.vq + ld * (alpha + 1)] = tab[4 * alpha + alpha * ld:]
+        # 1. the y_i, kMax C / T rounds of the block's threads
+        for r in range(_kmax(alpha) * C // T):
+            wv = r * T + tid
+            i, c = wv // C, c0 + wv % C
+            act = i < lsd
+            valid = act & (c < n)
+            xv = np.where(valid, x3[p, np.minimum(lo + i, ls - 1),
+                                    np.minimum(c, n - 1)], 0)
+            s = [geo.src + 4 * np.minimum(i, alpha - 1) + e for e in range(3)]
+            for a in s:
+                reads.word(a, act)
+            y = _redc(xv * sm[s[2]], sm[s[0]], sm[s[1]])
+            sm[geo.ys + wv[act]] = y[act]
+        # 2. v, left to right in float32, one thread a coefficient
+        vf = np.zeros(C, np.float32)
+        for i in range(lsd):
+            addr = geo.ys + i * C + np.arange(C)
+            reads.word(addr, np.ones(C, bool))
+            reads.word(np.full(C, geo.src + 4 * i + 3), np.ones(C, bool))
+            inv_b = sm[geo.src + 4 * i + 3:geo.src + 4 * i + 4].astype(
+                np.uint32).view(np.float32)[0]
+            vf = vf + sm[addr].astype(np.float32) * inv_b
+        sm[geo.vs:geo.vs + C] = np.clip(np.floor(vf).astype(np.int64), 0,
+                                        lsd).astype(np.uint64)
+        # 3. a warp per (group, 32 coefficients)
+        for item in range(geo.groups * (C // 32)):
+            g, cc = item // (C // 32), item % (C // 32) * 32 + lane
+            row = geo.qh + g * bc.WIDE_STRIDE
+            acc = np.zeros((G, 32), np.uint64)
+            for i in range(lsd):
+                reads.word(geo.ys + i * C + cc, np.ones(32, bool))
+                for half in (0, 4):
+                    reads.vector(np.full(32, row + i * geo.row + half))
+                qs = sm[row + i * geo.row:row + i * geo.row + G]
+                acc += sm[geo.ys + i * C + cc][None, :] * qs[:, None]
+            c = c0 + cc
+            act = c < n
+            reads.word(geo.vs + cc, act)
+            v = sm[geo.vs + cc].astype(np.int64)
+            for t in range(G):
+                j = g * G + t
+                if j >= ld:
+                    break
+                for e in range(4 if xq is not None else 3):
+                    reads.word(np.full(32, 4 * j + e), act)
+                q, qn, bar, pinv = sm[4 * j:4 * j + 4]
+                vq_addr = geo.vq + j * (alpha + 1) + v
+                reads.word(vq_addr, act)
+                r = _csub(_mont_wide(acc[t], q, qn, bar) + q - sm[vq_addr], q)
+                if xq is not None:
+                    xj = _barrett(xq[p, j, np.minimum(c, n - 1)], q, bar)
+                    r = _redc(_csub(xj + q - r, q) * pinv, q, qn)
+                out[p, k, j, c[act]] = r[act].astype(np.int64)
+    return out
+
+
+def _wide_case(name):
+    """(x, src, dst, alpha, Q part or None) of a wide-body case at
+    PN15QP880's moduli, the float32 v boundary planted in every digit,
+    N = 200 (a ragged last block)."""
+    q, qmul, p = PN15_Q, PN15_QMUL, PN15_P
+    src, dst, alpha = {
+        "Q -> QMul": (q, qmul, 28), "QMul -> Q": (qmul, q, 28),
+        "ModDown by QMul": (qmul, q, 28), "Ls 17 -> QMul": (q[:17], qmul, 17),
+        "Ls 20 -> QP (5 groups)": (q[:20], q[:28] + p, 20),
+        "digits of 12, 28 limbs": (q, qmul[:9], 12)}[name]
+    n, seed = 200, len(name)
+    x = _rand((2, len(src), n), seed, np.array(src, np.uint64)[:, None])
+    x = bc.plant_v_boundary(x, src, alpha, [0, 5, 199])
+    xq = (_rand((2, len(dst), n), seed + 1, np.array(dst, np.uint64)[:, None])
+          if name.startswith("ModDown") else None)
+    return x, src, dst, alpha, xq
+
+
+@pytest.mark.parametrize("name", ["Q -> QMul", "QMul -> Q", "ModDown by QMul",
+                                  "Ls 17 -> QMul", "Ls 20 -> QP (5 groups)",
+                                  "digits of 12, 28 limbs"])
+def test_wide_basis_schedule(name):
+    """The wide body's schedule (emulate_basis_wide) against the plain
+    mod_up / decompose / mod_down and today's one-thread-a-coefficient
+    arithmetic (emulate_basis), bit for bit, the float32 v boundary
+    included: BFV's three 28 -> 28 conversions, a short source (17, 20
+    limbs), five groups of output limbs (more than a block's warps), a
+    digit axis with a short last digit; every shared read conflict-free,
+    the 16-byte qhat loads broadcasts."""
+    x, src, dst, alpha, xq = _wide_case(name)
+    v32, exact = bc.v_floors(x, src, alpha)
+    assert (v32 != exact).any()
+    ls, ld, beta = len(src), len(dst), -(-len(src) // alpha)
+    assert alpha > bc.WIDE_ALPHA
+    cpu = torch.device("cpu")
+    if xq is not None:
+        t = bc.mod_down_tables(dst, src, cpu)
+        want = bc.mod_down_plain(xq, x, t)[:, None]
+    elif beta > 1:
+        t = bc.digit_tables(src, dst, alpha, cpu)
+        want = bc.decompose_plain(x, t)
+    else:
+        t = bc.mod_up_tables(src, dst, cpu)
+        want = bc.mod_up_plain(x, t)[:, None]
+    words = t.pack.numpy().view(np.uint32)
+    reads = SharedReads()
+    got = emulate_basis_wide(x, words, ls, alpha, beta, ld, xq, reads)
+    _same(got, want)
+    _same(emulate_basis(x, words, ls, alpha, beta, ld, xq), want)
+    assert reads.words > 0 and reads.vectors > 0
+    assert reads.conflicts == []
+
+
+def test_wide_body_constants():
+    """The wide body's constants and the dispatch in csrc/keyswitch.cu are
+    the ones basis_cuda.wide_geometry, the emulation and the wide counter
+    assume: digits of more than WIDE_ALPHA limbs reach kMax >= kWideMin,
+    and the launch takes wide_words of shared memory."""
+    src = (ntt_cuda.CSRC / "keyswitch.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(const["kWideGroup"]) == bc.WIDE_GROUP
+    assert int(const["kWideStride"]) == bc.WIDE_STRIDE
+    assert int(const["kWideCoeffs"]) == bc.WIDE_COEFFS
+    assert int(const["kThreads"]) == bc.THREADS
+    assert int(const["kWideMin"]) == 2 * bc.WIDE_ALPHA
+    assert (f"if (a.alpha <= {bc.WIDE_ALPHA}) return launch_basis<"
+            f"{bc.WIDE_ALPHA}, kDown>") in src
+    assert bc.WIDE_STRIDE % 4 == 0 and bc.WIDE_GROUP <= bc.WIDE_STRIDE
+    assert bc.WIDE_COEFFS % 32 == 0 and bc.THREADS % bc.WIDE_COEFFS == 0
+    for alpha, ld in ((28, 28), (17, 28), (64, 64), (9, 1)):
+        geo = bc.wide_geometry(alpha, ld)
+        assert geo.qh % 4 == 0 and geo.row % 4 == 0   # 16-byte qhat loads
+        assert geo.words == (4 * ld + 4 * alpha + alpha * geo.row
+                             + ld * (alpha + 1) + (alpha + 1) * bc.WIDE_COEFFS)
+        assert 4 * geo.words <= 227 * 1024
 
 
 # -- contractions ------------------------------------------------------------

@@ -1087,6 +1087,95 @@ def test_basis_kernels_match_plain(gen, logn, shards):
         assert got.shape == want.shape and torch.equal(got, want), name
 
 
+def _wide_basis_cases(gen):
+    """(name, wrapper, plain, args) of the basis kernel's wide body (digits
+    of more than basis_cuda.WIDE_ALPHA limbs) at logN 15, the float32 v
+    boundary in every case: BFV's three conversions at (5, 28) x 2^15
+    (Q -> QMul, QMul -> Q, the ModDown by QMul), a strided view of a
+    taller tensor, 1 and 3 polynomials, and short sources of 17 and 20
+    limbs."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    q, _, qmul = _ks_moduli(15)
+    dev, n = torch.device("cuda"), 1 << 15
+    up, back = bc.mod_up_tables(q, qmul, dev), bc.mod_up_tables(qmul, q, dev)
+    down = bc.mod_down_tables(q, qmul, dev)
+    bound_q = torch.tensor(q, device=dev)[:, None]
+    bound_m = torch.tensor(qmul, device=dev)[:, None]
+
+    def coeffs(polys, src, bound):
+        return _with_boundary(_rand(gen, (polys, len(src), n), bound), src,
+                              len(src))
+
+    x, y = coeffs(5, q, bound_q), coeffs(5, qmul, bound_m)
+    tall = _rand(gen, (3, 30, n), 1 << 32)
+    tall[:, 1:29] = _with_boundary(tall[:, 1:29], q, 28)
+    cases = [("Q -> QMul (5, 28)", bc.mod_up, bc.mod_up_plain, (x, up)),
+             ("QMul -> Q (5, 28)", bc.mod_up, bc.mod_up_plain, (y, back)),
+             ("ModDown by QMul (5, 28 + 28)", bc.mod_down, bc.mod_down_plain,
+              (x, y, down)),
+             ("strided view (3, 30)[:, 1:29]", bc.mod_up, bc.mod_up_plain,
+              (tall[:, 1:29], up))]
+    for polys in (1, 3):
+        cases.append((f"{polys} polynomials", bc.mod_up, bc.mod_up_plain,
+                      (coeffs(polys, q, bound_q), up)))
+        cases.append((f"ModDown, {polys} polynomials", bc.mod_down,
+                      bc.mod_down_plain, (coeffs(polys, q, bound_q),
+                                          coeffs(polys, qmul, bound_m), down)))
+    for ls in (17, 20):
+        cases.append((f"Ls {ls} -> QMul", bc.mod_up, bc.mod_up_plain,
+                      (coeffs(2, q[:ls], 1 << 32),
+                       bc.mod_up_tables(q[:ls], qmul, dev))))
+    return cases
+
+
+def test_wide_basis_kernels_match_plain(gen):
+    """The wide body against mod_up_plain / mod_down_plain bit for bit,
+    one launch each, every launch counted under `basis_wide`."""
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    for name, kern, plain, args in _wide_basis_cases(gen):
+        bc.reset_counters()
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert bc.counters()["basis_wide"] == 1, name
+        want = plain(*args)
+        assert got.shape == want.shape and torch.equal(got, want), name
+    assert bc.counters()["basis_wide"] == 1
+
+
+def test_bfv_mult_wide_conversions_match_cpu(gen):
+    """A 2-party BFV mult at logN 10 over 28 Q and 28 QMul limbs on the
+    card equals the same mult on the CPU bit for bit (the same seeds give
+    both devices the same keys and ciphertexts), with its four 28 -> 28
+    conversions in the wide body: `basis_wide` reads 4."""
+    import numpy as np
+    from mkhe_tpu_torch import mkbfv
+    from mkhe_tpu_torch.ops import basis_cuda as bc
+    q, qmul = ntt_primes(10, 26.5, 28), ntt_primes(10, 26.5, 28, skip=28)
+    msgs = np.random.default_rng(93).integers(0, 65537, (2, 1 << 10))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        bp = mkbfv.new_parameters(10, q, qmul, ntt_primes(10, 28.0, 4),
+                                  device=dev)
+        kgen = mkbfv.KeyGenerator(bp, seed=94)
+        pks, rlk = {}, mkbfv.RelinearizationKeySet()
+        for uid in ("a", "b"):
+            sk, pks[uid] = kgen.gen_key_pair(uid)
+            rlk.add(kgen.gen_relinearization_key_bfv(
+                sk, kgen.gen_secret_key(uid)))
+        enc, ev = mkbfv.Encryptor(bp, seed=95), mkbfv.Evaluator(bp)
+        cts = [enc.encrypt_msg(m, pks[u]) for m, u in zip(msgs, "ab")]
+        bc.reset_counters()
+        res[dev] = (cts, ev.mul_relin_new(*cts, rlk))
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert bc.counters()["basis_wide"] == 4
+    (cts_c, prod_c), (cts_g, prod_g) = res["cpu"], res["cuda"]
+    for a, b in zip(cts_c, cts_g):
+        assert torch.equal(b.data.cpu(), a.data)
+    assert prod_g.ids == prod_c.ids
+    assert torch.equal(prod_g.data.cpu(), prod_c.data)
+
+
 def _contraction_cases(gen, n):
     """(name, a, b, nterms) in each caller's layout over 32 limbs."""
     k, beta, B, R = 4, 14, 2, 3
@@ -1154,7 +1243,8 @@ def test_keyswitch_kernels_count_and_raise(gen):
     bc.mod_up_plain(x[:, :2], up)
     bc.mul_accum_plain(c, c, 1, lt)
     assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1,
-                             "rescale": 0, "decompose_ntt": 0, "tensor": 0}
+                             "rescale": 0, "decompose_ntt": 0, "tensor": 0,
+                             "basis_wide": 0}
     with pytest.raises(ValueError):
         bc.mod_up(x[:, :3], up)
     with pytest.raises(TypeError):
@@ -1173,7 +1263,8 @@ def test_keyswitch_kernels_count_and_raise(gen):
     with pytest.raises(ValueError):
         bc.mul_accum(y, z, 1, lt)
     assert bc.counters() == {"mod_up": 2, "mod_down": 1, "mul_accum": 1,
-                             "rescale": 0, "decompose_ntt": 0, "tensor": 0}
+                             "rescale": 0, "decompose_ntt": 0, "tensor": 0,
+                             "basis_wide": 0}
 
 
 @pytest.mark.parametrize("kernel", ["mod_up", "decompose", "mod_down",
@@ -1416,7 +1507,7 @@ def test_rescale_kernel_in_captured_graph(gen):
 
 def test_rescale_launches_once_per_op(gen):
     """One mul_relin_new and one mul_ptxt_new each launch the rescale
-    kernel exactly once."""
+    kernel exactly once, and no basis conversion of the wide body."""
     import numpy as np
     from mkhe_tpu_torch import mkckks
     from mkhe_tpu_torch.ops import basis_cuda as bc
@@ -1433,6 +1524,7 @@ def test_rescale_launches_once_per_op(gen):
         torch.cuda.synchronize()
         assert out.level < a.level
         assert bc.counters()["rescale"] == 1
+        assert bc.counters()["basis_wide"] == 0
 
 
 def test_rescale_wrapper_raises_on_cuda(gen):
